@@ -1,0 +1,13 @@
+from .cameras import (
+    CameraIntrinsics,
+    camera_center,
+    camera_ray_from_pose_angles,
+    get_camera_RT,
+    look_at_rotation,
+    ndc_bounds,
+    ndc_tables,
+    points_in_fov_mask,
+    project_points,
+    unproject_depth,
+    world_to_view,
+)

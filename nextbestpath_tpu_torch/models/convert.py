@@ -1,0 +1,69 @@
+"""Flax NBP variables (as numpy) -> the port's NBP ``state_dict``.
+
+Takes the nested ``params`` and ``batch_stats`` dicts of the JAX package's
+``NBP`` with numpy leaves (no flax needed here). Flax names its modules
+``<Type>_<n>`` in creation order; they are sorted by that numeric suffix
+(``ConvBlock_10`` after ``ConvBlock_9``), which is the order of the port's
+``conv_blocks``, ``up_convs`` and ``att_gates``. Conv kernels go from HWIO
+to OIHW. ``log_vars`` (the training loss's parameters) is skipped.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_BN_KEYS = (("scale", "weight"), ("bias", "bias"))
+_STAT_KEYS = (("mean", "running_mean"), ("var", "running_var"))
+
+
+def _by_suffix(tree: Mapping, prefix: str):
+    pat = re.compile(rf"^{prefix}_(\d+)$")
+    names = [k for k in tree if pat.match(k)]
+    return sorted(names, key=lambda k: int(pat.match(k).group(1)))
+
+
+def _conv(out: Dict, dst: str, conv: Mapping) -> None:
+    kernel = np.asarray(conv["kernel"], np.float32)         # (H, W, I, O)
+    out[f"{dst}.weight"] = torch.from_numpy(
+        np.array(kernel.transpose(3, 2, 0, 1), order="C"))
+    out[f"{dst}.bias"] = torch.from_numpy(np.array(conv["bias"], np.float32))
+
+
+def _bn(out: Dict, dst: str, p: Mapping, s: Mapping) -> None:
+    for src, name in _BN_KEYS:
+        out[f"{dst}.{name}"] = torch.from_numpy(np.array(p[src], np.float32))
+    for src, name in _STAT_KEYS:
+        out[f"{dst}.{name}"] = torch.from_numpy(np.array(s[src], np.float32))
+    out[f"{dst}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def flax_to_state_dict(params: Mapping, batch_stats: Mapping
+                       ) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.unet.NBP`` from flax params/batch_stats."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(_by_suffix(params, "ConvBlock")):
+        p, s = params[name], batch_stats[name]
+        for j in range(2):
+            _conv(out, f"conv_blocks.{i}.conv{j}",
+                  p[f"TorchConv_{j}"]["Conv_0"])
+            _bn(out, f"conv_blocks.{i}.bn{j}", p[f"BatchNorm_{j}"],
+                s[f"BatchNorm_{j}"])
+    for i, name in enumerate(_by_suffix(params, "UpConv")):
+        p, s = params[name], batch_stats[name]
+        _conv(out, f"up_convs.{i}.conv", p["TorchConv_0"]["Conv_0"])
+        _bn(out, f"up_convs.{i}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+    for i, name in enumerate(_by_suffix(params, "AttentionGate")):
+        p, s = params[name], batch_stats[name]
+        for j, (conv, bn) in enumerate((("w_g", "bn_g"), ("w_x", "bn_x"),
+                                        ("psi", "bn_psi"))):
+            _conv(out, f"att_gates.{i}.{conv}",
+                  p[f"TorchConv_{j}"]["Conv_0"])
+            _bn(out, f"att_gates.{i}.{bn}", p[f"BatchNorm_{j}"],
+                s[f"BatchNorm_{j}"])
+    for head in ("final1", "final2"):
+        _conv(out, head, params[head]["Conv_0"])
+    return out

@@ -1,0 +1,135 @@
+"""NBP dual-decoder attention U-Net as a PyTorch module.
+
+Port of ``nextbestpath_tpu/models/unet.py::NBP`` (f32 only). The module
+computes in NCHW and takes and returns NHWC at its boundary, as the JAX
+package's layouts:
+
+    forward(x (B, S, S, 5)) -> (value_map (B, S/4, S/4, 8),
+                                obstacle_map (B, S, S, 1))
+
+BatchNorm uses eps 1e-5 and runs in eval mode on the planning path; flax
+momentum 0.9 is torch momentum 0.1. Upsampling is nearest 2x, as the JAX
+UpConv's ``jax.image.resize(..., "nearest")``.
+
+Submodules are kept in the order flax numbers its auto-named modules
+(``ConvBlock_0..10``, ``UpConv_0..5``, ``AttentionGate_0..5``), so that
+``models/convert.py`` maps a flax tree onto ``state_dict`` by index.
+
+Numerics: the caller sets ``torch.backends.cudnn.allow_tf32 = False`` and
+leaves matmul TF32 off (``configure_f32()``), so convolutions on the card
+run in full f32.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def configure_f32() -> None:
+    """Full-f32 convolutions and matmuls on the card (no TF32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+
+
+class ConvBlock(nn.Module):
+    """(Conv3x3 -> BN -> ReLU) x 2."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv0 = nn.Conv2d(cin, cout, 3, padding=1)
+        self.bn0 = _bn(cout)
+        self.conv1 = nn.Conv2d(cout, cout, 3, padding=1)
+        self.bn1 = _bn(cout)
+
+    def forward(self, x):
+        x = F.relu(self.bn0(self.conv0(x)))
+        return F.relu(self.bn1(self.conv1(x)))
+
+
+class UpConv(nn.Module):
+    """2x nearest upsample -> Conv3x3 -> BN -> ReLU."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, 3, padding=1)
+        self.bn = _bn(cout)
+
+    def forward(self, x):
+        x = F.interpolate(x, scale_factor=2, mode="nearest")
+        return F.relu(self.bn(self.conv(x)))
+
+
+class AttentionGate(nn.Module):
+    """x * sigmoid(BN(psi(relu(BN(W_g g) + BN(W_x x)))))."""
+
+    def __init__(self, cg: int, cx: int, f_int: int):
+        super().__init__()
+        self.w_g = nn.Conv2d(cg, f_int, 1)
+        self.bn_g = _bn(f_int)
+        self.w_x = nn.Conv2d(cx, f_int, 1)
+        self.bn_x = _bn(f_int)
+        self.psi = nn.Conv2d(f_int, 1, 1)
+        self.bn_psi = _bn(1)
+
+    def forward(self, g, x):
+        a = F.relu(self.bn_g(self.w_g(g)) + self.bn_x(self.w_x(x)))
+        return x * torch.sigmoid(self.bn_psi(self.psi(a)))
+
+
+class NBP(nn.Module):
+    """Dual-decoder attention U-Net; NHWC in, NHWC out."""
+
+    def __init__(self, img_ch: int = 5, output_ch1: int = 8,
+                 output_ch2: int = 1, width: int = 64):
+        super().__init__()
+        w = width
+        # Flax creation order: encoder, then decoder 1, then decoder 2.
+        blocks = [(img_ch, w), (w, 2 * w), (2 * w, 4 * w), (4 * w, 8 * w),
+                  (8 * w, 16 * w),
+                  (16 * w, 8 * w), (8 * w, 4 * w),                      # dec 1
+                  (16 * w, 8 * w), (8 * w, 4 * w), (4 * w, 2 * w),       # dec 2
+                  (2 * w, w)]
+        self.conv_blocks = nn.ModuleList(ConvBlock(a, b) for a, b in blocks)
+        ups = [(16 * w, 8 * w), (8 * w, 4 * w),
+               (16 * w, 8 * w), (8 * w, 4 * w), (4 * w, 2 * w), (2 * w, w)]
+        self.up_convs = nn.ModuleList(UpConv(a, b) for a, b in ups)
+        gates = [(8 * w, 8 * w, 4 * w), (4 * w, 4 * w, 2 * w),
+                 (8 * w, 8 * w, 4 * w), (4 * w, 4 * w, 2 * w),
+                 (2 * w, 2 * w, w), (w, w, w // 2)]
+        self.att_gates = nn.ModuleList(AttentionGate(*g) for g in gates)
+        self.final1 = nn.Conv2d(4 * w, output_ch1, 1)
+        self.final2 = nn.Conv2d(w, output_ch2, 1)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cb, up, ag = self.conv_blocks, self.up_convs, self.att_gates
+        x = x.permute(0, 3, 1, 2)
+        x1 = cb[0](x)
+        x2 = cb[1](F.max_pool2d(x1, 2))
+        x3 = cb[2](F.max_pool2d(x2, 2))
+        x4 = cb[3](F.max_pool2d(x3, 2))
+        x5 = cb[4](F.max_pool2d(x4, 2))
+
+        d5 = up[0](x5)
+        d5 = cb[5](torch.cat([ag[0](d5, x4), d5], dim=1))
+        d4 = up[1](d5)
+        d4 = cb[6](torch.cat([ag[1](d4, x3), d4], dim=1))
+        out1 = self.final1(d4)
+
+        e5 = up[2](x5)
+        e5 = cb[7](torch.cat([ag[2](e5, x4), e5], dim=1))
+        e4 = up[3](e5)
+        e4 = cb[8](torch.cat([ag[3](e4, x3), e4], dim=1))
+        e3 = up[4](e4)
+        e3 = cb[9](torch.cat([ag[4](e3, x2), e3], dim=1))
+        e2 = up[5](e3)
+        e2 = cb[10](torch.cat([ag[5](e2, x1), e2], dim=1))
+        out2 = torch.sigmoid(self.final2(e2))
+        return out1.permute(0, 2, 3, 1), out2.permute(0, 2, 3, 1)

@@ -1,0 +1,133 @@
+"""Coverage metric over fixed-capacity point buffers.
+
+Port of ``nextbestpath_tpu/ops/coverage.py`` (the parts the planning
+rollout runs): the share of GT points with a reconstructed point within the
+threshold, against a stride subsample of the cloud, and its AUC.
+
+``min_dists`` launches kernel K3 (``csrc/coverage.cu``) for CUDA tensors and
+takes its plain version, ``min_sq_dists_plain``, for CPU tensors. Both take
+squared distances from the f32 differences, summed in index order.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+_S_SENTINEL = 1e9  # invalid sampled slots are moved here (d^2 ~ 3e18 < inf)
+_NO_SAMPLE = 1e30
+_PAIRS = 1 << 22   # (GT, sample) pairs per chunk of the plain version
+
+
+def masked_min_dists(gt: torch.Tensor, pts: torch.Tensor,
+                     pts_valid: torch.Tensor) -> torch.Tensor:
+    """Dense reference: min Euclidean distance from each GT point to the
+    valid pts, (G,), from f32 differences; 1e15 where none is valid."""
+    s = torch.where(pts_valid[:, None], pts, torch.full_like(pts, _S_SENTINEL))
+    return torch.sqrt(torch.clamp(
+        min_sq_dists_plain(gt, s.contiguous(), pts.shape[0]), min=0.0))
+
+
+def min_sq_dists_plain(g: torch.Tensor, s: torch.Tensor, s_count
+                       ) -> torch.Tensor:
+    """Plain version of K3: (G,) min over the first s_count rows of s of
+    (dx*dx + dy*dy) + dz*dz; 1e30 when s_count is 0."""
+    n = max(0, min(int(s_count), s.shape[0]))
+    best = torch.full((g.shape[0],), _NO_SAMPLE, dtype=torch.float32,
+                      device=g.device)
+    if n == 0:
+        return best
+    s = s[:n]
+    g_rows = max(1, min(g.shape[0], 4096))
+    s_cols = max(1, _PAIRS // g_rows)
+    for g0 in range(0, g.shape[0], g_rows):
+        gc = g[g0:g0 + g_rows]
+        b = best[g0:g0 + g_rows]
+        for s0 in range(0, n, s_cols):
+            sc = s[s0:s0 + s_cols]
+            dx = gc[:, 0:1] - sc[:, 0]
+            dy = gc[:, 1:2] - sc[:, 1]
+            dz = gc[:, 2:3] - sc[:, 2]
+            d2 = (dx * dx + dy * dy) + dz * dz
+            b = torch.minimum(b, d2.amin(dim=1))
+        best[g0:g0 + g_rows] = b
+    return best
+
+
+def min_dists(gt: torch.Tensor, pts: torch.Tensor, pts_valid: torch.Tensor,
+              s_count=None) -> torch.Tensor:
+    """Min ||gt_i - pts_j|| over the valid pts, (G,).
+
+    s_count bounds the loop to the valid prefix (pass a device tensor to
+    avoid a host sync). K3 on CUDA tensors, its plain version on CPU."""
+    s = torch.where(pts_valid[:, None], pts.to(torch.float32),
+                    torch.full_like(pts, _S_SENTINEL, dtype=torch.float32))
+    s = s.contiguous()
+    g = gt.to(torch.float32).contiguous()
+    if s_count is None:
+        s_count = pts.shape[0]
+    if g.device.type == "cpu":
+        d2 = min_sq_dists_plain(g, s, s_count)
+    else:
+        d2 = kernels.min_sq_dists(g, s, s_count)
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the value int32 arithmetic would have wrapped to."""
+    return torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
+
+
+def stride_subsample(start: torch.Tensor, stride_half: torch.Tensor,
+                     count: torch.Tensor, n_sample: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random start + large odd stride modulo count over the valid prefix.
+
+    start in [0, max(count, 1)), stride_half in [1, max(count // 2, 2)) are
+    the random draws; stride = 2 * stride_half + 1. The index arithmetic
+    wraps as the JAX package's int32 arithmetic does."""
+    dev = count.device
+    c = torch.clamp(count.long(), min=1)
+    stride = 2 * stride_half.long() + 1
+    k = torch.arange(n_sample, dtype=torch.int64, device=dev)
+    raw = _wrap_int32(start.long() + _wrap_int32(stride * k))
+    idx = torch.remainder(raw, c)
+    valid = k < count.long()
+    return idx, valid
+
+
+def n_sample_for(n_gt: int, capacity: int, weight: int = 2) -> int:
+    """Subsample size: weight * n_gt rounded up to the chunk the JAX
+    package's metric uses (8192, or 2048 for small problems)."""
+    raw = n_gt * weight
+    chunk = 8192 if (raw >= 8192 and capacity >= 8192) else 2048
+    n_sample = ((raw + chunk - 1) // chunk) * chunk
+    if n_sample > capacity:
+        n_sample = max((capacity // chunk) * chunk, chunk)
+    return n_sample
+
+
+def coverage_percentage(gt: torch.Tensor, pts: torch.Tensor,
+                        count: torch.Tensor, start: torch.Tensor,
+                        stride_half: torch.Tensor, threshold: float = 1.0,
+                        weight: int = 2) -> torch.Tensor:
+    """Share of GT points within ``threshold`` of the stride subsample of
+    the buffer (the JAX package's ``fast_sampling=True``); 0 when the
+    buffer is empty. Returns a 0-d f32 tensor on the buffer's device."""
+    n_sample = n_sample_for(gt.shape[0], pts.shape[0], weight)
+    idx, valid = stride_subsample(start, stride_half, count, n_sample)
+    sampled = pts[idx]
+    dmin = min_dists(gt, sampled, valid, s_count=count)
+    cov = (dmin < threshold).to(torch.float32).sum() / max(gt.shape[0], 1)
+    return torch.where(count > 0, cov, torch.zeros_like(cov))
+
+
+def compute_auc(y, dx: float = 1.0 / 40.0) -> float:
+    """Trapezoid AUC + half the first sample."""
+    y = np.asarray(y, dtype=np.float64)
+    trapezoid = getattr(np, "trapezoid", None) or np.trapz
+    return float(trapezoid(y, dx=dx) + y[0] * dx / 2.0)
