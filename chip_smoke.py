@@ -8,16 +8,21 @@ Phases, each of which raises on failure (exit code != 0):
 1. the device, and the card's name and power limit from nvidia-smi;
 2. the build: one nvcc call compiles csrc/*.cu into one library;
 3. each kernel (K1 pinhole ray cast, K2 general ray cast, K3 running-min
-   distance) against its plain PyTorch version on the card, at the shapes
-   the planning rollout gives it, with its time, its plain version's time,
-   a library call's time where one computes the same function, and the
-   least time the card could take for the same work;
+   distance) against its plain PyTorch version on the card, bit for bit,
+   at the shapes the planning rollout gives it (K1 at one frame and at a
+   move's four frames in one launch; K3 at full, partial and zero counts),
+   with its time, its plain version's time, a library call's time where
+   one computes the same function, the least time the card could take for
+   the same work, and that work's time at one instruction an operation
+   (the kernels round each product and sum alone, so no FMA);
 4. the main path (``eval.nbp_planning.main_path_setup``): the NBP planning
    rollout on the ``simple`` scene (seed 8) with the default config (256x456
    frames, 6144 points a frame, 2M point capacity, 20000 GT points) and a
    full-width NBP U-Net in f32 with random weights from a seed. Launch counts
    are set to 0 just before it and read just after; every kernel must have
-   run, and coverage must rise;
+   run, K1 once for the initial move and twice a pose (the loop-start frame,
+   then the move's four frames in one launch), K3 once a pose, and coverage
+   must rise;
 5. a reference check: a small rollout on the card against the same rollout
    on the CPU (plain versions), with the same draws and weights.
 
@@ -36,18 +41,20 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet).
+# Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet). The
+# f32 rate counts an FMA as two operations; the kernels forbid contraction,
+# so their ceiling is one instruction an operation, half that rate.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+NO_FMA_OPS = 33.5e12
 
-# Operations per (ray, triangle) or (GT, sample) pair, as the kernels count
-# them: K1 three 3-term dots, negations, |det| and four compares; K2 two
-# cross products, four dots, the origin difference and the compares; K3
-# three differences, three squares, two adds and a min.
-OPS_K1, OPS_K2, OPS_K3 = 25, 50, 9
+# Operations per (ray, triangle) or (GT, sample) pair that the function
+# needs: K1 three 3-term dots, the three sign and range compares of det, u
+# and v, the add u + v and its compare; K2 two cross products, four dots, the
+# origin difference and the compares; K3 three differences, three squares,
+# two adds and a min. The divisions of the few pairs that pass are left out.
+OPS_K1, OPS_K2, OPS_K3 = 20, 50, 9
 
-TOL_T_REL = 1e-6       # hit distances: kernel vs plain, relative
-TOL_GRAZING = 1e-4     # share of rays whose integers may differ (grazing)
 TOL_COVERAGE = 1e-3    # small rollout: card vs CPU coverage curve
 
 
@@ -61,40 +68,26 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+def ceiling_ms(n_ops: float) -> float:
+    return n_ops / NO_FMA_OPS * 1e3
 
 
 def compare_hits(name, got, want, n_rays):
-    """Integers equal apart from a grazing allowance; t within TOL_T_REL."""
+    """Kernel against plain version: hits, counts and indices equal, and t
+    equal to the bit (both round each operation alike)."""
     import torch
     t_k, c_k, i_k = got
     t_p, c_p, i_p = want
     hit_k, hit_p = t_k < 3.4e38, t_p < 3.4e38
     both = hit_k & hit_p
     err = float((t_k[both] - t_p[both]).abs().max()) if bool(both.any()) else 0.0
-    rel = float(((t_k[both] - t_p[both]).abs()
-                 / t_p[both].abs().clamp(min=1e-30)).max()) if bool(both.any()) else 0.0
     mism = {"hit": int((hit_k != hit_p).sum()), "count": int((c_k != c_p).sum()),
             "index": int((i_k != i_p).sum())}
     log(f"{name}: rays {n_rays} hits {int(hit_p.sum())} max_abs_err(t) {err:.3e} "
-        f"max_rel_err(t) {rel:.3e} mismatches {mism}")
-    allowed = TOL_GRAZING * n_rays
-    if max(mism.values()) > allowed or rel > TOL_T_REL:
+        f"mismatches {mism}")
+    if max(mism.values()) > 0 or not torch.equal(t_k, t_p):
         raise AssertionError(f"{name} disagrees with its plain version: {mism}, "
-                             f"rel err {rel} (allowed {allowed:.1f} rays, "
-                             f"rel {TOL_T_REL})")
+                             f"max abs err of t {err}")
     torch.cuda.synchronize()
     return err
 
@@ -116,13 +109,12 @@ def main() -> int:
     from nextbestpath_tpu_torch.draws import TorchDraws
     from nextbestpath_tpu_torch.eval.nbp_planning import (
         MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES, NBPPlanningRollout,
-        main_path_setup, seeded_nbp)
-    from nextbestpath_tpu_torch.geometry.cameras import (CameraIntrinsics, _mat3,
-                                                         camera_center,
+        main_path_move, main_path_setup, seeded_nbp)
+    from nextbestpath_tpu_torch.geometry.cameras import (CameraIntrinsics,
                                                          get_camera_RT)
     from nextbestpath_tpu_torch.models.unet import configure_f32
     from nextbestpath_tpu_torch.ops.coverage import min_sq_dists_plain
-    from nextbestpath_tpu_torch.ops.raytrace import (pinhole_tri_soa,
+    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tri_soa,
                                                      ray_hits_pinhole_plain,
                                                      ray_hits_plain, tris_to_soa)
     from nextbestpath_tpu_torch.planning.grid_paths import DIRS, lattice_positions
@@ -161,27 +153,37 @@ def main() -> int:
     intr = CameraIntrinsics(int(params.image_height), int(params.image_width),
                             float(params.fov_degrees), float(params.camera_znear),
                             float(params.zfar))
-    s = assets.start_cam_idx
-    pos = assets.pose_from_idx(s)
-    R, T = get_camera_RT(torch.tensor(pos[None, :3], device=dev),
-                         torch.tensor(pos[None, 3:], device=dev))
-    eye = camera_center(R[0], T[0])
-    dirs = _mat3(intr.pixel_ray_dirs_view(dev).reshape(-1, 3), R[0].T).contiguous()
-    ph = pinhole_tri_soa(soa, eye)
     zn, zf = float(intr.znear), float(intr.zfar)
-    got = kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf)
-    want = ray_hits_pinhole_plain(dirs, ph, n_tris, zn, zf)
-    err = compare_hits("K1 ray_hits_pinhole", got, want, dirs.shape[0])
-    n = dirs.shape[0]
-    b, by = bound_ms(n * 12 + ph.numel() * 4 + n * 12, n * nt * OPS_K1)
+    n_steps = int(params.n_interpolation_steps)
+    poses = main_path_move(assets, n_steps, dev)
+    R, T = get_camera_RT(poses[:, :3], poses[:, 3:])
+    eyes, dirs4 = frame_rays(R, T, intr)
+    ph4 = pinhole_tri_soa(soa, eyes)
+    dirs1, ph1 = dirs4[-1:].contiguous(), ph4[-1:].contiguous()
+    k1 = {}
+    for b, (d, ph) in ((1, (dirs1, ph1)), (n_steps, (dirs4, ph4))):
+        got = kernels.ray_hits_pinhole(d, ph, n_tris, zn, zf)
+        want = ray_hits_pinhole_plain(d, ph, n_tris, zn, zf)
+        err = compare_hits(f"K1 ray_hits_pinhole ({b} frame{'s' * (b > 1)}, one launch)",
+                           got, want, d.shape[0] * d.shape[1])
+        n = d.shape[0] * d.shape[1]
+        ops = n * nt * OPS_K1
+        k1[b] = dict(
+            err=err, n=n, ops=ops,
+            bound=bound_ms(n * 12 + ph.numel() * 4 + n * 12, ops),
+            ms=kernels.device_ms(lambda: kernels.ray_hits_pinhole(d, ph, n_tris, zn, zf), 50),
+            plain_ms=kernels.device_ms(lambda: ray_hits_pinhole_plain(d, ph, n_tris, zn, zf), 3))
+    b4, b1 = k1[n_steps], k1[1]
     rows.append(dict(
         name="ray_hits_pinhole", route="cuda",
         source="nextbestpath_tpu_torch/csrc/raytrace.cu",
         replaces="nextbestpath_tpu/ops/raytrace.py:234",
-        max_abs_err=err,
-        ms=time_ms(lambda: kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf), 50),
-        plain_ms=time_ms(lambda: ray_hits_pinhole_plain(dirs, ph, n_tris, zn, zf), 5),
-        bound_ms=b, bound_by=by, library_ms=None, shape=f"{n} rays x {nt} tris"))
+        max_abs_err=max(b1["err"], b4["err"]),
+        ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound"][0],
+        bound_by=b4["bound"][1], ceiling_ms=ceiling_ms(b4["ops"]), library_ms=None,
+        ms_per_frame=b4["ms"] / n_steps, b1_ms=b1["ms"], b1_plain_ms=b1["plain_ms"],
+        b1_bound_ms=b1["bound"][0], b1_ceiling_ms=ceiling_ms(b1["ops"]),
+        shape=f"{n_steps} frames x {b1['n']} rays x {nt} tris in one launch"))
 
     L, H = assets.pose_l, assets.pose_h
     positions = lattice_positions(torch.from_numpy(assets.pose_origin).to(dev), L, H)
@@ -208,55 +210,65 @@ def main() -> int:
         source="nextbestpath_tpu_torch/csrc/raytrace.cu",
         replaces="nextbestpath_tpu/ops/raytrace.py:127",
         max_abs_err=err,
-        ms=time_ms(lambda: kernels.ray_hits(o_in, d_in, soa, n_tris, 1e-6, 3.4e38), 50),
-        plain_ms=time_ms(lambda: ray_hits_plain(o_in, d_in, soa, n_tris, 1e-6, 3.4e38), 5),
-        bound_ms=b, bound_by=by, library_ms=None, shape=f"{n} rays x {nt} tris"))
+        ms=kernels.device_ms(lambda: kernels.ray_hits(o_in, d_in, soa, n_tris, 1e-6, 3.4e38), 50),
+        plain_ms=kernels.device_ms(lambda: ray_hits_plain(o_in, d_in, soa, n_tris, 1e-6, 3.4e38), 5),
+        bound_ms=b, bound_by=by, ceiling_ms=ceiling_ms(n * nt * OPS_K2),
+        library_ms=None, shape=f"{n} rays x {nt} tris"))
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     g = torch.from_numpy(assets.gt_surface).to(dev).contiguous()
     n_s = 40960
     samp = g[torch.randint(0, g.shape[0], (n_s,), generator=gen).to(dev)]
     samp = (samp + 0.5 * torch.randn(n_s, 3, generator=gen).to(dev)).contiguous()
-    count = torch.tensor([n_s], dtype=torch.int32, device=dev)
-    d2_k = kernels.min_sq_dists(g, samp, count)
-    d2_p = min_sq_dists_plain(g, samp, count)
-    err = float((d2_k - d2_p).abs().max())
-    log(f"K3 min_sq_dists: {g.shape[0]} GT x {n_s} samples, max_abs_err(d^2) "
-        f"{err:.3e}, covered(<1) {float((d2_k < 1).float().mean()):.4f}")
-    if not torch.allclose(d2_k, d2_p, rtol=1e-6, atol=0.0):
-        raise AssertionError("K3 disagrees with its plain version")
-    # The early poses' layout: a buffer count below the sample size, the
-    # rows past it at the sentinel and the loop cut at the count, which is
-    # not a multiple of the kernel's tile.
+    tiling = kernels.min_sq_dists_tiling(g.shape[0], n_s, dev)
+    log(f"K3 tiling at {g.shape[0]} GT x {n_s} samples: {tiling}")
+    # The full count; the early poses' layout (a count below the sample
+    # size, the rows past it at the sentinel, the loop cut at the count,
+    # which is no multiple of the tile or the split); and an empty buffer.
     n_part = 12345
     part = torch.where((torch.arange(n_s, device=dev) < n_part)[:, None], samp,
                        torch.full_like(samp, 1e9)).contiguous()
-    count_part = torch.tensor([n_part], dtype=torch.int32, device=dev)
-    d2_k = kernels.min_sq_dists(g, part, count_part)
-    d2_p = min_sq_dists_plain(g, part, count_part)
-    e = float((d2_k - d2_p).abs().max())
-    log(f"K3 min_sq_dists: {g.shape[0]} GT x {n_s} samples, {n_part} valid, "
-        f"max_abs_err(d^2) {e:.3e}")
-    if not torch.equal(d2_k, d2_p):
-        raise AssertionError("K3 disagrees with its plain version on a "
-                             "partial count")
-    err = max(err, e)
-    b, by = bound_ms(g.numel() * 4 + samp.numel() * 4 + g.shape[0] * 4,
-                     g.shape[0] * n_s * OPS_K3)
+    counts = {}
+    err = 0.0
+    for label, s_in, c in (("full", samp, n_s), ("partial", part, n_part),
+                           ("empty", samp, 0)):
+        count = torch.tensor([c], dtype=torch.int32, device=dev)
+        d2_k = kernels.min_sq_dists(g, s_in, count)
+        d2_p = min_sq_dists_plain(g, s_in, count)
+        e = float((d2_k - d2_p).abs().max())
+        log(f"K3 min_sq_dists ({label}): {g.shape[0]} GT x {n_s} samples, {c} valid, "
+            f"max_abs_err(d^2) {e:.3e}, covered(<1) {float((d2_k < 1).float().mean()):.4f}")
+        if not torch.equal(d2_k, d2_p):
+            raise AssertionError(f"K3 disagrees with its plain version ({label} count)")
+        err = max(err, e)
+        counts[label] = (s_in, count)
+    s_full, c_full = counts["full"]
+    s_part, c_part = counts["partial"]
+    ops = g.shape[0] * n_s * OPS_K3
+    b, by = bound_ms(g.numel() * 4 + samp.numel() * 4 + g.shape[0] * 4, ops)
     rows.append(dict(
         name="min_sq_dists", route="cuda",
         source="nextbestpath_tpu_torch/csrc/coverage.cu",
         replaces="nextbestpath_tpu/ops/coverage.py:109",
         max_abs_err=err,
-        ms=time_ms(lambda: kernels.min_sq_dists(g, samp, count), 20),
-        plain_ms=time_ms(lambda: min_sq_dists_plain(g, samp, count), 3),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: torch.cdist(g, samp).min(dim=1), 5),
-        shape=f"{g.shape[0]} GT x {n_s} samples"))
+        ms=kernels.device_ms(lambda: kernels.min_sq_dists(g, s_full, c_full), 20),
+        plain_ms=kernels.device_ms(lambda: min_sq_dists_plain(g, s_full, c_full), 3),
+        bound_ms=b, bound_by=by, ceiling_ms=ceiling_ms(ops),
+        library_ms=kernels.device_ms(lambda: torch.cdist(g, samp).min(dim=1), 5),
+        partial_ms=kernels.device_ms(lambda: kernels.min_sq_dists(g, s_part, c_part), 20),
+        partial_ceiling_ms=ceiling_ms(g.shape[0] * n_part * OPS_K3),
+        shape=f"{g.shape[0]} GT x {n_s} samples ({n_part} valid for partial_ms)"))
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library "
-            f"{r['library_ms']}) at {r['shape']}")
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, no-FMA ceiling "
+            f"{r['ceiling_ms']:.4f} ms, library {r['library_ms']}) at {r['shape']}")
+    k1_row, k3_row = rows[0], rows[2]
+    log(f"  ray_hits_pinhole: {k1_row['ms_per_frame']:.4f} ms a frame in the "
+        f"{n_steps}-frame launch; one frame alone {k1_row['b1_ms']:.4f} ms (plain "
+        f"{k1_row['b1_plain_ms']:.3f} ms, bound {k1_row['b1_bound_ms']:.4f} ms, "
+        f"ceiling {k1_row['b1_ceiling_ms']:.4f} ms)")
+    log(f"  min_sq_dists: {k3_row['partial_ms']:.4f} ms at {n_part} valid samples "
+        f"(ceiling {k3_row['partial_ceiling_ms']:.4f} ms)")
 
     # 4. The main path: the planning rollout at full width.
     warm = NBPPlanningRollout(assets, model, params=params, seed=MAIN_PATH_SEED,
@@ -288,6 +300,11 @@ def main() -> int:
     for name, k in launches.items():
         if k <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    want_launches = {"ray_hits_pinhole": 1 + 2 * n_poses, "min_sq_dists": n_poses}
+    for name, k in want_launches.items():
+        if launches[name] != k:
+            raise AssertionError(f"kernel {name} launched {launches[name]} times on "
+                                 f"the main path, expected {k}")
     for r, key in zip(rows, ("ray_hits_pinhole", "ray_hits", "min_sq_dists")):
         r["launches"] = launches[key]
 
@@ -316,7 +333,7 @@ def main() -> int:
 
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "ceiling_ms", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -41,7 +41,8 @@ from ..planning.grid_paths import (DIRS, EDGE_COLLISION, EDGE_PASSABLE, INF,
                                    apply_edge_memo, bfs_distance_field,
                                    extract_path, layout_edge_blocked,
                                    pick_orientations)
-from ..sim.rollout import TrajectoryBuffer, move_and_capture, observe_current
+from ..sim.rollout import (TrajectoryBuffer, interpolate_move,
+                           move_and_capture, observe_current)
 from ..sim.sensor import PointBuffer
 from ..sim.tables import SceneTables, build_scene_tables
 
@@ -384,3 +385,16 @@ def main_path_setup() -> Tuple[Params, SceneAssets, NBP]:
         generate_scene(MAIN_PATH_DIFFICULTY, seed=MAIN_PATH_SEED),
         params=params)
     return params, assets, seeded_nbp()
+
+
+def main_path_move(assets: SceneAssets, n_steps: int, device) -> torch.Tensor:
+    """The poses (n_steps, 5) of a move from the start pose to a lattice
+    neighbour (one step along l, one azimuth step round): the frames whose
+    shapes K1 gets from move_and_capture on the main path."""
+    start = np.asarray(assets.start_cam_idx).copy()
+    nxt = start.copy()
+    nxt[0] = start[0] + 1 if start[0] + 1 < assets.pose_l else start[0] - 1
+    nxt[4] = (start[4] + 1) % assets.n_azim
+    old, new = (torch.tensor(assets.pose_from_idx(i), dtype=torch.float32,
+                             device=device) for i in (start, nxt))
+    return interpolate_move(old, new, n_steps, assets.n_azim)

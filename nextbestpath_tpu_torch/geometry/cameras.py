@@ -29,8 +29,10 @@ DEFAULT_FOV_DEGREES = 60.0
 
 
 def _mat3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for (..., 3) @ (3, 3), summed in index order."""
-    return (a[..., 0:1] * b[0] + a[..., 1:2] * b[1]) + a[..., 2:3] * b[2]
+    """a @ b for (..., 3) @ (..., 3, 3), batch dims broadcast, summed in
+    index order."""
+    return ((a[..., 0:1] * b[..., 0, :] + a[..., 1:2] * b[..., 1, :])
+            + a[..., 2:3] * b[..., 2, :])
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -80,8 +82,7 @@ def get_camera_RT(X_cam: torch.Tensor, V_cam: torch.Tensor):
     (N, 2)."""
     rays = camera_ray_from_pose_angles(V_cam[..., 0], V_cam[..., 1])
     R = look_at_rotation(X_cam, X_cam + rays)
-    T = -((X_cam[..., 0:1] * R[..., 0, :] + X_cam[..., 1:2] * R[..., 1, :])
-          + X_cam[..., 2:3] * R[..., 2, :])
+    T = -_mat3(X_cam, R)
     return R, T
 
 
@@ -172,5 +173,5 @@ def points_in_fov_mask(points: torch.Tensor, R: torch.Tensor,
 
 
 def camera_center(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
-    """eye = -T @ R^T."""
-    return _mat3(-T, R.T)
+    """eye = -T @ R^T, for one camera or a batch (R (..., 3, 3))."""
+    return _mat3(-T, R.transpose(-1, -2))

@@ -42,9 +42,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "nbp_ray_hits_pinhole": [_P, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P],
+    "nbp_ray_hits_pinhole": [_P, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P,
+                             _P],
     "nbp_ray_hits": [_P, _P, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P],
     "nbp_min_sq_dists": [_P, _I, _P, _I, _P, _P, _P],
+    "nbp_min_sq_dists_tiling": [_I, _I, _I, _P],
 }
 
 
@@ -116,7 +118,7 @@ def build() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = None if name == "nbp_min_sq_dists_tiling" else ctypes.c_int
     BUILD_INFO.update(path=path, compiled=compiled,
                       seconds=time.perf_counter() - t0, log=log)
     _lib = lib
@@ -160,20 +162,26 @@ def _stream(device: torch.device) -> int:
 
 def ray_hits_pinhole(dirs: torch.Tensor, ph_soa: torch.Tensor, n_tris,
                      t_min: float, t_max: float):
-    """K1 launch: dirs (N, 3) f32, pinhole SoA (10, F) f32 -> (t, cnt, idx)."""
-    _check(dirs, "dirs", torch.float32, (None, 3))
-    _check(ph_soa, "ph_soa", torch.float32, (10, None))
+    """K1 launch over B frames: dirs (B, N, 3) f32, pinhole SoA (B, 10, F)
+    f32, one triangle count for all frames -> (t, cnt, idx), each (B, N).
+    t_min must be >= 0: the kernel folds each triangle's sign into its data,
+    which holds only for hits in front of the origin."""
+    if not t_min >= 0.0:
+        raise ValueError(f"t_min must be >= 0 for the pinhole kernel, got "
+                         f"{t_min}")
+    _check(dirs, "dirs", torch.float32, (None, None, 3))
+    _check(ph_soa, "ph_soa", torch.float32, (dirs.shape[0], 10, None))
     lib = build()
     dev = dirs.device
-    n = dirs.shape[0]
+    b, n = dirs.shape[0], dirs.shape[1]
     nt = _count_tensor(n_tris, dev)
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    cnt = torch.empty(n, dtype=torch.int32, device=dev)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    t = torch.empty((b, n), dtype=torch.float32, device=dev)
+    cnt = torch.empty((b, n), dtype=torch.int32, device=dev)
+    idx = torch.empty((b, n), dtype=torch.int32, device=dev)
     err = lib.nbp_ray_hits_pinhole(
-        dirs.data_ptr(), n, ph_soa.data_ptr(), ph_soa.shape[1], nt.data_ptr(),
-        float(t_min), float(t_max), t.data_ptr(), cnt.data_ptr(),
-        idx.data_ptr(), _stream(dev))
+        dirs.data_ptr(), b, n, ph_soa.data_ptr(), ph_soa.shape[2],
+        nt.data_ptr(), float(t_min), float(t_max), t.data_ptr(),
+        cnt.data_ptr(), idx.data_ptr(), _stream(dev))
     _raise_on(err, "nbp_ray_hits_pinhole")
     LAUNCHES["ray_hits_pinhole"] += 1
     return t, cnt, idx
@@ -216,3 +224,38 @@ def min_sq_dists(g: torch.Tensor, s: torch.Tensor, s_count) -> torch.Tensor:
     _raise_on(err, "nbp_min_sq_dists")
     LAUNCHES["min_sq_dists"] += 1
     return out
+
+
+def min_sq_dists_tiling(n_g: int, n_s: int, device=None) -> Dict[str, int]:
+    """K3's tiling for n_g GT points against a capacity of n_s samples on
+    the card: GT points a block, samples a split, and splits."""
+    lib = build()
+    n_sm = torch.cuda.get_device_properties(
+        torch.device("cuda") if device is None else device).multi_processor_count
+    out = (ctypes.c_int * 3)()
+    lib.nbp_min_sq_dists_tiling(int(n_g), int(n_s), int(n_sm), out)
+    return {"points_per_block": out[0], "chunk": out[1], "splits": out[2]}
+
+
+def device_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of one call of ``fn`` (which launches on the current
+    stream), from CUDA events around ``reps`` calls. A device-side sleep
+    that outlasts the host's enqueueing of the calls goes first, so the
+    launches run back to back and a call whose host cost exceeds its device
+    time is still timed on the device."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.0, 2.0 * reps * host_s + 1e-3) * 2e9))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps

@@ -133,7 +133,13 @@ def _hit_test(det, u, v, t_num, t_min, t_max):
 
 def ray_hits_pinhole_plain(dirs: torch.Tensor, ph_soa: torch.Tensor, n_tris,
                            t_min: float, t_max: float):
-    """Plain version of K1 over a (10, F) pinhole SoA. -> (t, cnt, idx)."""
+    """Plain version of K1: dirs (N, 3) against a (10, F) pinhole SoA, or B
+    frames at once, dirs (B, N, 3) against (B, 10, F), one frame after the
+    other. -> (t, cnt, idx) of shape (N,) or (B, N)."""
+    if dirs.dim() == 3:
+        frames = [ray_hits_pinhole_plain(d, ph, n_tris, t_min, t_max)
+                  for d, ph in zip(dirs, ph_soa)]
+        return tuple(torch.stack([fr[i] for fr in frames]) for i in range(3))
     n = dirs.shape[0]
     f = _n_valid(n_tris, ph_soa.shape[1])
     if f == 0 or n == 0:
@@ -192,22 +198,28 @@ def pinhole_tri_soa(tri_soa: torch.Tensor, origin: torch.Tensor
                     ) -> torch.Tensor:
     """(9, F) SoA + shared origin (3,) -> (10, F) pinhole SoA [n; m2; m1;
     t_num] with n = e1 x e2, m2 = s x e2, m1 = s x e1, t_num = e2 . m1 and
-    s = origin - v0."""
+    s = origin - v0. Origins (B, 3) give (B, 10, F), one SoA a frame, each
+    bit-equal to its own single-origin call (the same elementwise ops)."""
+    if origin.dim() == 1:
+        return pinhole_tri_soa(tri_soa, origin[None])[0]
     v0 = tri_soa[0:3]
     e1 = tri_soa[3:6]
     e2 = tri_soa[6:9]
-    s = origin.to(torch.float32)[:, None] - v0
+    s = origin.to(torch.float32)[:, :, None] - v0  # (B, 3, F)
 
     def cross(a, b):
-        return torch.stack([a[1] * b[2] - a[2] * b[1],
-                            a[2] * b[0] - a[0] * b[2],
-                            a[0] * b[1] - a[1] * b[0]])
+        return torch.stack([a[..., 1, :] * b[..., 2, :]
+                            - a[..., 2, :] * b[..., 1, :],
+                            a[..., 2, :] * b[..., 0, :]
+                            - a[..., 0, :] * b[..., 2, :],
+                            a[..., 0, :] * b[..., 1, :]
+                            - a[..., 1, :] * b[..., 0, :]], dim=-2)
 
-    n = cross(e1, e2)
+    n = cross(e1, e2).expand(s.shape[0], -1, -1)
     m2 = cross(s, e2)
     m1 = cross(s, e1)
-    t_num = _dot3(e2[0], e2[1], e2[2], m1[0], m1[1], m1[2])[None]
-    return torch.cat([n, m2, m1, t_num], dim=0).to(torch.float32).contiguous()
+    t_num = _dot3(e2[0], e2[1], e2[2], m1[:, 0], m1[:, 1], m1[:, 2])[:, None]
+    return torch.cat([n, m2, m1, t_num], dim=1).to(torch.float32).contiguous()
 
 
 def ray_hits_pinhole(origin: torch.Tensor, dirs: torch.Tensor,
@@ -215,12 +227,18 @@ def ray_hits_pinhole(origin: torch.Tensor, dirs: torch.Tensor,
                      t_max: float = _INF):
     """ray_hits_full for rays sharing one origin (a camera frame).
 
-    origin (3,), dirs (N, 3), tri_soa (9, F). Returns (t, n_hits, idx).
-    K1 on CUDA tensors, its plain version on CPU tensors."""
+    origin (3,) and dirs (N, 3), or B frames at once: origins (B, 3) and
+    dirs (B, N, 3); tri_soa (9, F). Returns (t, n_hits, idx), each (N,) or
+    (B, N). K1 (one launch for all frames) on CUDA tensors, its plain
+    version on CPU tensors."""
     ph = pinhole_tri_soa(tri_soa, origin)
     dirs = dirs.to(torch.float32).contiguous()
     if dirs.device.type == "cpu":
         return ray_hits_pinhole_plain(dirs, ph, n_tris, t_min, t_max)
+    if dirs.dim() == 2:
+        out = kernels.ray_hits_pinhole(dirs[None], ph[None], n_tris, t_min,
+                                       t_max)
+        return tuple(x[0] for x in out)
     return kernels.ray_hits_pinhole(dirs, ph, n_tris, t_min, t_max)
 
 
@@ -250,18 +268,36 @@ def ray_hits(origins: torch.Tensor, dirs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def render_depth(tri_soa: torch.Tensor, n_tris, R: torch.Tensor,
-                 T: torch.Tensor, intr: CameraIntrinsics) -> torch.Tensor:
-    """Depth frame (H, W) of view-space z; background -1. Hits nearer than
-    intr.znear or beyond intr.zfar are ignored."""
-    eye = camera_center(R, T)
-    d_view = intr.pixel_ray_dirs_view(tri_soa.device).reshape(-1, 3)
-    d_world = _mat3(d_view, R.T)
+def frame_rays(Rs: torch.Tensor, Ts: torch.Tensor, intr: CameraIntrinsics
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eyes (B, 3) and world pixel-ray directions (B, H*W, 3) of cameras Rs
+    (B, 3, 3), Ts (B, 3): eye = -T @ R^T, d = d_view @ R^T, through the
+    same products as one camera's, so each frame's rays are bit-equal to
+    its own camera's."""
+    Rt = Rs.transpose(-1, -2)
+    d_view = intr.pixel_ray_dirs_view(Rs.device).reshape(1, -1, 3)
+    return camera_center(Rs, Ts), _mat3(d_view, Rt[:, None])
+
+
+def render_depth_batch(tri_soa: torch.Tensor, n_tris, Rs: torch.Tensor,
+                       Ts: torch.Tensor, intr: CameraIntrinsics
+                       ) -> torch.Tensor:
+    """Depth frames (B, H, W) of view-space z for cameras Rs (B, 3, 3), Ts
+    (B, 3); background -1. Hits nearer than intr.znear or beyond intr.zfar
+    are ignored. One K1 launch renders all B frames on the card; each frame
+    is bit-equal to render_depth of its own camera."""
+    eye, d_world = frame_rays(Rs, Ts, intr)
     t, _, _ = ray_hits_pinhole(eye, d_world, tri_soa, n_tris,
                                t_min=float(intr.znear),
                                t_max=float(intr.zfar))
     zbuf = torch.where(t < _INF, t, torch.full_like(t, -1.0))
-    return zbuf.reshape(intr.image_height, intr.image_width)
+    return zbuf.reshape(-1, intr.image_height, intr.image_width)
+
+
+def render_depth(tri_soa: torch.Tensor, n_tris, R: torch.Tensor,
+                 T: torch.Tensor, intr: CameraIntrinsics) -> torch.Tensor:
+    """Depth frame (H, W): render_depth_batch of one camera."""
+    return render_depth_batch(tri_soa, n_tris, R[None], T[None], intr)[0]
 
 
 def segments_hit_mesh(starts: torch.Tensor, ends: torch.Tensor,

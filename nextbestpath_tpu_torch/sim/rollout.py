@@ -2,10 +2,10 @@
 
 Port of ``nextbestpath_tpu/sim/rollout.py``: per move, the camera linearly
 interpolates over ``n_steps`` substeps (azimuth wrapping the short way),
-renders a depth frame at each substep and appends that frame's sampled
-points to the cloud; the frame of the arrival pose is processed again at
-the start of the next pose (``observe_current``), so a pose contributes
-five frames.
+renders the substeps' depth frames together and appends each frame's
+sampled points to the cloud in order; the frame of the arrival pose is
+processed again at the start of the next pose (``observe_current``), so a
+pose contributes five frames.
 
 Each frame's random pixel scores are an input (``frame_scores``), drawn by
 the caller from a provider in ``draws.py``.
@@ -18,7 +18,8 @@ from typing import Sequence, Tuple
 import torch
 
 from ..geometry.cameras import CameraIntrinsics
-from .sensor import PointBuffer, backproject_sample, capture_depth
+from .sensor import (PointBuffer, backproject_sample, capture_depth,
+                     capture_depth_batch)
 
 
 class TrajectoryBuffer:
@@ -68,6 +69,14 @@ def interpolate_pose(old_pose5: torch.Tensor, new_pose5: torch.Tensor,
     return torch.cat([pose[:4], azim.reshape(1)])
 
 
+def interpolate_move(old_pose5: torch.Tensor, new_pose5: torch.Tensor,
+                     n_steps: int, n_azim: int) -> torch.Tensor:
+    """The poses of substeps 1..n_steps of a move, (n_steps, 5)."""
+    return torch.stack([interpolate_pose(old_pose5, new_pose5, s, n_steps,
+                                         n_azim)
+                        for s in range(1, n_steps + 1)])
+
+
 def move_and_capture(tri_soa: torch.Tensor, n_tris, old_pose5: torch.Tensor,
                      new_pose5: torch.Tensor, pc: PointBuffer,
                      traj: "TrajectoryBuffer",
@@ -77,19 +86,20 @@ def move_and_capture(tri_soa: torch.Tensor, n_tris, old_pose5: torch.Tensor,
                      gathering_factor: float = 0.05,
                      sensor_range: float = 70.0
                      ) -> Tuple[PointBuffer, "TrajectoryBuffer", torch.Tensor]:
-    """One lattice move: substeps 1..n_steps, each rendered, backprojected,
-    subsampled with ``frame_scores[s - 1]`` and appended. Returns
+    """One lattice move: the n_steps interpolated poses rendered together
+    (one K1 launch on the card), then each substep backprojected,
+    subsampled with ``frame_scores[s - 1]`` and appended in order. Returns
     (pc, traj, last_zbuf)."""
-    zbuf = None
-    for s in range(1, n_steps + 1):
-        pose = interpolate_pose(old_pose5, new_pose5, s, n_steps, n_azim)
-        zbuf, R, T = capture_depth(tri_soa, n_tris, pose, intr)
-        batch = backproject_sample(zbuf, R, T, intr, frame_scores[s - 1],
-                                   n_slots, gathering_factor=gathering_factor,
+    poses = interpolate_move(old_pose5, new_pose5, n_steps, n_azim)
+    zbufs, Rs, Ts = capture_depth_batch(tri_soa, n_tris, poses, intr)
+    for i in range(n_steps):
+        batch = backproject_sample(zbufs[i], Rs[i], Ts[i], intr,
+                                   frame_scores[i], n_slots,
+                                   gathering_factor=gathering_factor,
                                    sensor_range=sensor_range)
         pc.append(batch, prefix_valid=True)
-        traj.append(pose[:3])
-    return pc, traj, zbuf
+        traj.append(poses[i, :3])
+    return pc, traj, zbufs[-1]
 
 
 def observe_current(tri_soa: torch.Tensor, n_tris, pose5: torch.Tensor,

@@ -14,7 +14,7 @@ import torch
 
 from ..geometry.cameras import (CameraIntrinsics, _mat3, camera_center,
                                 get_camera_RT)
-from ..ops.raytrace import render_depth
+from ..ops.raytrace import render_depth_batch
 
 
 class FramePoints(NamedTuple):
@@ -24,13 +24,21 @@ class FramePoints(NamedTuple):
     valid: torch.Tensor   # (P,) bool, a leading prefix
 
 
+def capture_depth_batch(tri_soa: torch.Tensor, n_tris, poses5: torch.Tensor,
+                        intr: CameraIntrinsics
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Depth frames for B 5-D poses (B, 5), rendered together (one K1
+    launch on the card). Returns (zbufs (B, H, W), R (B, 3, 3), T (B, 3))."""
+    R, T = get_camera_RT(poses5[:, :3], poses5[:, 3:])
+    return render_depth_batch(tri_soa, n_tris, R, T, intr), R, T
+
+
 def capture_depth(tri_soa: torch.Tensor, n_tris, pose5: torch.Tensor,
                   intr: CameraIntrinsics
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Render a depth frame for a 5-D pose. Returns (zbuf, R, T)."""
-    R, T = get_camera_RT(pose5[None, :3], pose5[None, 3:])
-    zbuf = render_depth(tri_soa, n_tris, R[0], T[0], intr)
-    return zbuf, R[0], T[0]
+    zbuf, R, T = capture_depth_batch(tri_soa, n_tris, pose5[None], intr)
+    return zbuf[0], R[0], T[0]
 
 
 def backproject_sample(zbuf: torch.Tensor, R: torch.Tensor, T: torch.Tensor,

@@ -154,3 +154,76 @@ def test_render_depth_matches_pallas_scene():
     both = (got > -1) & (want > -1)
     assert both.mean() > 0.5
     np.testing.assert_allclose(got[both], want[both], rtol=T_RTOL, atol=1e-4)
+
+
+def _move_cameras(assets, n_steps=4):
+    """(poses (B, 5), R, T) of the four substeps of the main path's move from
+    the start pose to a lattice neighbour."""
+    from nextbestpath_tpu_torch.eval.nbp_planning import main_path_move
+
+    poses = main_path_move(assets, n_steps, "cpu")
+    R, T_ = get_camera_RT(poses[:, :3], poses[:, 3:])
+    return poses.numpy(), R, T_
+
+
+def test_render_depth_batch_matches_pallas_move():
+    """The four substeps of one lattice move, rendered in one batch, against
+    the JAX package's render_depth_batch (Pallas in interpret mode)."""
+    assets = pack_generated_scene(generate_scene("simple", seed=8))
+    intr_j = JIntr(32, 56, 60.0, 1.0, 750.0)
+    intr_t = CameraIntrinsics(32, 56, 60.0, 1.0, 750.0)
+    poses, Rt, Tt = _move_cameras(assets)
+    Rj, Tj = j_get_camera_RT(jnp.asarray(poses[:, :3]),
+                             jnp.asarray(poses[:, 3:]))
+    want = np.asarray(J.render_depth_batch(
+        J.tris_to_soa(jnp.asarray(assets.tris)), assets.n_tris, Rj, Tj,
+        intr_j))
+    got = T.render_depth_batch(T.tris_to_soa(_t(assets.tris)), assets.n_tris,
+                               Rt, Tt, intr_t).numpy()
+    assert got.shape == want.shape == (4, 32, 56)
+    assert ((got > -1) != (want > -1)).mean() <= GRAZING_SHARE
+    both = (got > -1) & (want > -1)
+    assert both.mean() > 0.5
+    np.testing.assert_allclose(got[both], want[both], rtol=T_RTOL, atol=1e-4)
+
+
+def test_render_depth_batch_equals_stacked_frames():
+    assets = pack_generated_scene(generate_scene("simple", seed=8))
+    intr = CameraIntrinsics(32, 56, 60.0, 1.0, 750.0)
+    _, R, T_ = _move_cameras(assets)
+    soa = T.tris_to_soa(_t(assets.tris))
+    nt = torch.tensor([assets.n_tris], dtype=torch.int32)
+    got = T.render_depth_batch(soa, nt, R, T_, intr)
+    want = torch.stack([T.render_depth(soa, nt, R[b], T_[b], intr)
+                        for b in range(R.shape[0])])
+    assert torch.equal(got, want)
+
+
+def test_pinhole_soa_batch_equals_stacked_frames():
+    rng = np.random.default_rng(6)
+    soa = T.tris_to_soa(_t(rng.normal(scale=5.0, size=(70, 3, 3))
+                           .astype(np.float32)))
+    origins = _t(rng.normal(size=(4, 3)).astype(np.float32))
+    got = T.pinhole_tri_soa(soa, origins)
+    assert got.shape == (4, 10, 70)
+    want = torch.stack([T.pinhole_tri_soa(soa, o) for o in origins])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_tris", [0, 1, 41, 70])
+def test_pinhole_plain_batch_equals_frames(n_tris):
+    rng = np.random.default_rng(7)
+    soa = T.tris_to_soa(_t(rng.normal(scale=5.0, size=(70, 3, 3))
+                           .astype(np.float32)))
+    origins = _t(rng.normal(size=(3, 3)).astype(np.float32))
+    dirs = _t(rng.normal(size=(3, 333, 3)).astype(np.float32))
+    ph = T.pinhole_tri_soa(soa, origins)
+    got = T.ray_hits_pinhole_plain(dirs, ph, n_tris, 1e-4, 3.4e38)
+    per = [T.ray_hits_pinhole_plain(dirs[b], ph[b], n_tris, 1e-4, 3.4e38)
+           for b in range(3)]
+    for i, g in enumerate(got):
+        assert g.shape == (3, 333)
+        assert torch.equal(g, torch.stack([p[i] for p in per]))
+    # The dispatching wrapper takes the same batched path on the CPU.
+    for g, w in zip(T.ray_hits_pinhole(origins, dirs, soa, n_tris), got):
+        assert torch.equal(g, w)

@@ -139,3 +139,26 @@ def test_move_and_capture_and_observe_match(scene):
                                np.asarray(pc_j.points)[:n], atol=PTS_ATOL)
     np.testing.assert_allclose(tr_t.xyz.numpy(), np.asarray(tr_j.xyz), atol=1e-6)
     np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), atol=1e-4)
+
+
+def test_move_and_capture_renders_substeps_as_frames(scene):
+    """The batched render of a move gives each substep the frame that
+    capture_depth renders for its pose alone, to the bit."""
+    intr = CameraIntrinsics(H, W, 60.0, 1.0, 750.0)
+    old = _t(np.array([7.0, 3.3, 7.0, 0.0, 315.0], np.float32))
+    new = _t(np.array([10.0, 3.3, 7.0, 0.0, 0.0], np.float32))
+    soa = tris_to_soa(_t(scene.tris))
+    poses = TR.interpolate_move(old, new, 4, 8)
+    zbufs, R, T_ = TS.capture_depth_batch(soa, scene.n_tris, poses, intr)
+    for b in range(4):
+        z, r, t = TS.capture_depth(soa, scene.n_tris, poses[b], intr)
+        assert torch.equal(zbufs[b], z)
+        assert torch.equal(R[b], r) and torch.equal(T_[b], t)
+    scores = [torch.rand(H * W, generator=torch.Generator().manual_seed(s))
+              for s in range(4)]
+    _, _, last = TR.move_and_capture(soa, scene.n_tris, old, new,
+                                     TS.PointBuffer.create(4096, "cpu"),
+                                     TR.TrajectoryBuffer.create(16, "cpu"),
+                                     scores, intr, n_steps=4, n_azim=8,
+                                     n_slots=256)
+    assert torch.equal(last, zbufs[-1])
