@@ -10,7 +10,10 @@ Phases, each of which raises on failure (exit code != 0):
 3. each kernel (K1 pinhole ray cast, K2 general ray cast, K3 running-min
    distance) against its plain PyTorch version on the card, bit for bit,
    at the shapes the planning rollout gives it (K1 at one frame and at a
-   move's four frames in one launch; K3 at full, partial and zero counts),
+   move's four frames in one launch; K2 at the scene tables in one launch,
+   the inside test alone, the ``insane`` scene's tables and a frame's rays,
+   with the lanes a ray it takes and its time at zero triangles; K3 at
+   full, partial and zero counts),
    with its time, its plain version's time, a library call's time where
    one computes the same function, the least time the card could take for
    the same work, and that work's time at one instruction an operation
@@ -21,17 +24,26 @@ Phases, each of which raises on failure (exit code != 0):
    full-width NBP U-Net in f32 with random weights from a seed. Launch counts
    are set to 0 just before it and read just after; every kernel must have
    run, K1 once for the initial move and twice a pose (the loop-start frame,
-   then the move's four frames in one launch), K3 once a pose, and coverage
-   must rise;
+   then the move's four frames in one launch), K2 once (the scene's tables),
+   K3 once a pose, and coverage must rise;
 5. a reference check: a small rollout on the card against the same rollout
    on the CPU (plain versions), with the same draws and weights.
 
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
+
+    python3 chip_smoke.py --against DIR
+
+also times K2 of another checkout of this repo (its own
+``nextbestpath_tpu_torch/kernels.py``, built into its own ``_build/``) at
+phase 3's K2 shapes, held to this tree's plain version, in the order DIR,
+this tree, this tree, DIR, and prints one JSON line a run and shape.
 """
 
 from __future__ import annotations
 
+import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -49,11 +61,13 @@ PEAK_BYTES = 3.35e12
 NO_FMA_OPS = 33.5e12
 
 # Operations per (ray, triangle) or (GT, sample) pair that the function
-# needs: K1 three 3-term dots, the three sign and range compares of det, u
-# and v, the add u + v and its compare; K2 two cross products, four dots, the
-# origin difference and the compares; K3 three differences, three squares,
-# two adds and a min. The divisions of the few pairs that pass are left out.
-OPS_K1, OPS_K2, OPS_K3 = 20, 50, 9
+# needs: K1 three 3-term dots (15), the three sign and range compares of
+# det, u and v, the add u + v and its compare (5); K2 the origin difference
+# (3), the cross products p = d x e2 and q = s x e1 (18), the dots det, u
+# and v (15), |det|, two sign selects, u + v and four compares (8); K3 three
+# differences, three squares, two adds and a min. The divisions of the few
+# pairs that pass (and K2's t_scaled dot before them) are left out.
+OPS_K1, OPS_K2, OPS_K3 = 20, 44, 9
 
 TOL_COVERAGE = 1e-3    # small rollout: card vs CPU coverage curve
 
@@ -92,7 +106,69 @@ def compare_hits(name, got, want, n_rays):
     return err
 
 
+def k2_cases(assets, eye, dirs, znear, zfar):
+    """K2's inputs at phase 3: ``tables``, the 7 L H rays of the main path's
+    planner tables in the one launch of sim/tables.py::build_scene_tables;
+    ``inside``, their first 3 L H, the inside test alone; ``insane``, the
+    tables of the procgen ``insane`` scene (seed 8, 58x58 lattice, 2,784
+    triangles); ``frame``, the rays ``dirs`` (N, 3) of one frame of the main
+    path's move, each with its own copy of ``eye`` (3,) as its origin, in
+    (znear, zfar). Dicts of origins, dirs, soa, the triangle count as an int
+    (nt) and as a device tensor (n_tris), t_min and t_max."""
+    import torch
+    from nextbestpath_tpu_torch.assets import generate_scene, pack_generated_scene
+    from nextbestpath_tpu_torch.eval.nbp_planning import MAIN_PATH_SEED
+    from nextbestpath_tpu_torch.ops.raytrace import tris_to_soa
+    from nextbestpath_tpu_torch.planning.grid_paths import lattice_positions
+    from nextbestpath_tpu_torch.sim.tables import table_rays
+
+    def tables(name, a, n_rays=None):
+        pos = lattice_positions(torch.from_numpy(a.pose_origin).to(dev),
+                                a.pose_l, a.pose_h)
+        o, d = table_rays(pos)
+        return dict(name=name, origins=o[:n_rays].contiguous(),
+                    dirs=d[:n_rays].contiguous(),
+                    soa=tris_to_soa(torch.from_numpy(a.tris).to(dev)), nt=int(a.n_tris),
+                    n_tris=torch.tensor([a.n_tris], dtype=torch.int32, device=dev),
+                    t_min=1e-6, t_max=3.4e38)
+
+    dev = dirs.device
+    main = tables("tables", assets)
+    frame = dict(main, name="frame", origins=eye.expand(dirs.shape[0], 3).contiguous(),
+                 dirs=dirs.contiguous(), t_min=znear, t_max=zfar)
+    insane = pack_generated_scene(generate_scene("insane", seed=MAIN_PATH_SEED))
+    return [main, tables("inside", assets, 3 * assets.pose_l * assets.pose_h),
+            tables("insane", insane), frame]
+
+
+def time_k2_against(tree, cases, plain):
+    """K2 of the checkout ``tree`` and of this one at ``cases``, each held to
+    ``plain`` (this tree's plain version's results, by case name) and timed
+    in the order tree, this, this, tree."""
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    spec = importlib.util.spec_from_file_location(
+        "_other_kernels", os.path.join(tree, "nextbestpath_tpu_torch", "kernels.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.build()
+    for label, kern in ((tree, other), (".", kernels), (".", kernels), (tree, other)):
+        for c in cases:
+            def run(k=kern, c=c):
+                return k.ray_hits(c["origins"], c["dirs"], c["soa"], c["n_tris"],
+                                  c["t_min"], c["t_max"])
+            if not all(torch.equal(g, w) for g, w in zip(run(), plain[c["name"]])):
+                raise AssertionError(f"K2 of {label} disagrees with the plain "
+                                     f"version at {c['name']}")
+            print(json.dumps(dict(tree=label, shape=c["name"], rays=c["origins"].shape[0],
+                                  tris=c["nt"], ms=kernels.device_ms(run, 50))), flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--against", default=None,
+                    help="another checkout whose K2 to time at phase 3's K2 shapes")
+    args = ap.parse_args()
     # The smoke runs on one card: expose only the first visible one.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = (visible.split(",")[0]
@@ -112,12 +188,10 @@ def main() -> int:
         main_path_move, main_path_setup, seeded_nbp)
     from nextbestpath_tpu_torch.geometry.cameras import (CameraIntrinsics,
                                                          get_camera_RT)
-    from nextbestpath_tpu_torch.models.unet import configure_f32
     from nextbestpath_tpu_torch.ops.coverage import min_sq_dists_plain
     from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tri_soa,
                                                      ray_hits_pinhole_plain,
                                                      ray_hits_plain, tris_to_soa)
-    from nextbestpath_tpu_torch.planning.grid_paths import DIRS, lattice_positions
 
     # 1. Device.
     dev = torch.device("cuda:0")
@@ -128,7 +202,6 @@ def main() -> int:
     log(f"device: {kind} (count {torch.cuda.device_count()}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
-    configure_f32()
 
     # 2. Build.
     t0 = time.perf_counter()
@@ -185,35 +258,43 @@ def main() -> int:
         b1_bound_ms=b1["bound"][0], b1_ceiling_ms=ceiling_ms(b1["ops"]),
         shape=f"{n_steps} frames x {b1['n']} rays x {nt} tris in one launch"))
 
-    L, H = assets.pose_l, assets.pose_h
-    positions = lattice_positions(torch.from_numpy(assets.pose_origin).to(dev), L, H)
-    flat = positions.reshape(-1, 3)
-    axes = torch.tensor([[3e-4, 1.0, 7e-4], [1.0, 3e-4, 7e-4], [7e-4, 3e-4, 1.0]],
-                        device=dev)
-    o_in = flat.repeat(3, 1).contiguous()
-    d_in = axes.repeat_interleave(flat.shape[0], dim=0).contiguous()
-    got = kernels.ray_hits(o_in, d_in, soa, n_tris, 1e-6, 3.4e38)
-    want = ray_hits_plain(o_in, d_in, soa, n_tris, 1e-6, 3.4e38)
-    err = compare_hits("K2 ray_hits (inside test)", got, want, o_in.shape[0])
-    for dl, dh in DIRS:
-        step = torch.tensor([3.0 * dl, 0.0, 3.0 * dh], device=dev)
-        d_e = ((positions + step).reshape(-1, 3) - flat).contiguous()
-        e = compare_hits(f"K2 ray_hits (edges {dl},{dh})",
-                         kernels.ray_hits(flat.contiguous(), d_e, soa, n_tris, 1e-6, 1.0),
-                         ray_hits_plain(flat, d_e, soa, n_tris, 1e-6, 1.0),
-                         flat.shape[0])
-        err = max(err, e)
-    n = o_in.shape[0]
-    b, by = bound_ms(n * 24 + soa.numel() * 4 + n * 12, n * nt * OPS_K2)
+    # K2 at the scene tables' one launch (the main path's shape), the inside
+    # test alone, the `insane` scene's tables and a frame's rays with an
+    # origin each (k2_cases), and at n_tris = 0: the launch and the block
+    # scheduling alone, the floor under the small shapes.
+    k2, k2_plain = {}, {}
+    cases = k2_cases(assets, eyes[-1], dirs4[-1], zn, zf)
+    for case in cases:
+        o, d, c_soa, c_nt = case["origins"], case["dirs"], case["soa"], case["n_tris"]
+        n, lo, hi = o.shape[0], case["t_min"], case["t_max"]
+        k2_plain[case["name"]] = want = ray_hits_plain(o, d, c_soa, case["nt"], lo, hi)
+        err = compare_hits(f"K2 ray_hits ({case['name']})",
+                           kernels.ray_hits(o, d, c_soa, c_nt, lo, hi), want, n)
+        zero = torch.zeros_like(c_nt)
+        ops = n * case["nt"] * OPS_K2
+        k2[case["name"]] = dict(
+            err=err, n=n, nt=case["nt"], lanes=kernels.ray_hits_lanes(n),
+            bound=bound_ms(n * 24 + 9 * case["nt"] * 4 + n * 12, ops),
+            ceiling=ceiling_ms(ops),
+            ms=kernels.device_ms(lambda: kernels.ray_hits(o, d, c_soa, c_nt, lo, hi), 50),
+            plain_ms=kernels.device_ms(lambda: ray_hits_plain(o, d, c_soa, case["nt"], lo, hi), 2),
+            floor_ms=kernels.device_ms(lambda: kernels.ray_hits(o, d, c_soa, zero, lo, hi), 50))
+    for name, r in k2.items():
+        log(f"  ray_hits {name}: {r['n']} rays x {r['nt']} tris, G = {r['lanes']} lanes a ray: "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms by "
+            f"{r['bound'][1]}, no-FMA ceiling {r['ceiling']:.5f} ms, n_tris = 0 floor "
+            f"{r['floor_ms']:.4f} ms)")
+    if args.against:
+        time_k2_against(args.against, cases, k2_plain)
+    tab = k2["tables"]
     rows.append(dict(
         name="ray_hits", route="cuda",
         source="nextbestpath_tpu_torch/csrc/raytrace.cu",
         replaces="nextbestpath_tpu/ops/raytrace.py:127",
-        max_abs_err=err,
-        ms=kernels.device_ms(lambda: kernels.ray_hits(o_in, d_in, soa, n_tris, 1e-6, 3.4e38), 50),
-        plain_ms=kernels.device_ms(lambda: ray_hits_plain(o_in, d_in, soa, n_tris, 1e-6, 3.4e38), 5),
-        bound_ms=b, bound_by=by, ceiling_ms=ceiling_ms(n * nt * OPS_K2),
-        library_ms=None, shape=f"{n} rays x {nt} tris"))
+        max_abs_err=max(r["err"] for r in k2.values()),
+        ms=tab["ms"], plain_ms=tab["plain_ms"], bound_ms=tab["bound"][0],
+        bound_by=tab["bound"][1], ceiling_ms=tab["ceiling"], library_ms=None,
+        shape=f"{tab['n']} rays x {tab['nt']} tris (the scene tables in one launch)"))
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     g = torch.from_numpy(assets.gt_surface).to(dev).contiguous()
@@ -300,7 +381,8 @@ def main() -> int:
     for name, k in launches.items():
         if k <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    want_launches = {"ray_hits_pinhole": 1 + 2 * n_poses, "min_sq_dists": n_poses}
+    want_launches = {"ray_hits_pinhole": 1 + 2 * n_poses, "ray_hits": 1,
+                     "min_sq_dists": n_poses}
     for name, k in want_launches.items():
         if launches[name] != k:
             raise AssertionError(f"kernel {name} launched {launches[name]} times on "

@@ -26,3 +26,11 @@ __device__ __forceinline__ int clamp_count(const int* p, int hi) {
   int n = *p;
   return n < 0 ? 0 : (n > hi ? hi : n);
 }
+
+// The current device's SM count, read on the host (no sync).
+static inline int sm_count() {
+  int dev = 0, n = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}

@@ -135,13 +135,6 @@ extern "C" void nbp_min_sq_dists_tiling(int n_g, int n_s, int n_sm,
   tiling[2] = std::max(1, (n_s + chunk - 1) / chunk);
 }
 
-static int sm_count() {
-  int dev = 0, n = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
-
 extern "C" int nbp_min_sq_dists(const void* g, int n_g, const void* s,
                                 int n_s, const void* s_count, void* out,
                                 void* stream) {

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "nbp_ray_hits_pinhole": [_P, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P,
                              _P],
     "nbp_ray_hits": [_P, _P, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P],
+    "nbp_ray_hits_lanes": [_I, _I],
     "nbp_min_sq_dists": [_P, _I, _P, _I, _P, _P, _P],
     "nbp_min_sq_dists_tiling": [_I, _I, _I, _P],
 }
@@ -156,6 +157,11 @@ def _raise_on(err: int, name: str) -> None:
                            f"cudaError {err}")
 
 
+def _sm_count(device=None) -> int:
+    return torch.cuda.get_device_properties(
+        torch.device("cuda") if device is None else device).multi_processor_count
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -189,7 +195,9 @@ def ray_hits_pinhole(dirs: torch.Tensor, ph_soa: torch.Tensor, n_tris,
 
 def ray_hits(origins: torch.Tensor, dirs: torch.Tensor, soa: torch.Tensor,
              n_tris, t_min: float, t_max: float):
-    """K2 launch: origins/dirs (N, 3) f32, SoA (9, F) f32 -> (t, cnt, idx)."""
+    """K2 launch: origins/dirs (N, 3) f32, SoA (9, F) f32 -> (t, cnt, idx).
+    The kernel gives each ray ``ray_hits_lanes(N)`` lanes, chosen on the host
+    from N and the SM count."""
     _check(origins, "origins", torch.float32, (None, 3))
     _check(dirs, "dirs", torch.float32, (origins.shape[0], 3))
     _check(soa, "tri_soa", torch.float32, (9, None))
@@ -207,6 +215,13 @@ def ray_hits(origins: torch.Tensor, dirs: torch.Tensor, soa: torch.Tensor,
     _raise_on(err, "nbp_ray_hits")
     LAUNCHES["ray_hits"] += 1
     return t, cnt, idx
+
+
+def ray_hits_lanes(n_rays: int, device=None) -> int:
+    """The lanes a ray (a power of two, 1 to 32) that K2 takes for n_rays
+    rays on the card."""
+    lib = build()
+    return int(lib.nbp_ray_hits_lanes(int(n_rays), _sm_count(device)))
 
 
 def min_sq_dists(g: torch.Tensor, s: torch.Tensor, s_count) -> torch.Tensor:
@@ -230,10 +245,8 @@ def min_sq_dists_tiling(n_g: int, n_s: int, device=None) -> Dict[str, int]:
     """K3's tiling for n_g GT points against a capacity of n_s samples on
     the card: GT points a block, samples a split, and splits."""
     lib = build()
-    n_sm = torch.cuda.get_device_properties(
-        torch.device("cuda") if device is None else device).multi_processor_count
     out = (ctypes.c_int * 3)()
-    lib.nbp_min_sq_dists_tiling(int(n_g), int(n_s), int(n_sm), out)
+    lib.nbp_min_sq_dists_tiling(int(n_g), int(n_s), _sm_count(device), out)
     return {"points_per_block": out[0], "chunk": out[1], "splits": out[2]}
 
 

@@ -15,24 +15,30 @@ Submodules are kept in the order flax numbers its auto-named modules
 (``ConvBlock_0..10``, ``UpConv_0..5``, ``AttentionGate_0..5``), so that
 ``models/convert.py`` maps a flax tree onto ``state_dict`` by index.
 
-Numerics: the caller sets ``torch.backends.cudnn.allow_tf32 = False`` and
-leaves matmul TF32 off (``configure_f32()``), so convolutions on the card
-run in full f32.
+Numerics: ``NBP.forward`` runs with ``torch.backends.cudnn.allow_tf32``
+off and puts the caller's setting back when it returns, so its convolutions
+on the card run in full f32 as the reference's do (it has no matmul).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from contextlib import contextmanager
+from typing import Iterator, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 
-def configure_f32() -> None:
-    """Full-f32 convolutions and matmuls on the card (no TF32)."""
+@contextmanager
+def cudnn_f32() -> Iterator[None]:
+    """cuDNN without TF32 inside the block; the caller's flag after it."""
+    prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
@@ -109,6 +115,10 @@ class NBP(nn.Module):
         self.final2 = nn.Conv2d(w, output_ch2, 1)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        with cudnn_f32():
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cb, up, ag = self.conv_blocks, self.up_convs, self.att_gates
         x = x.permute(0, 3, 1, 2)
         x1 = cb[0](x)

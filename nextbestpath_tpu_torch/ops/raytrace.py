@@ -308,17 +308,29 @@ def segments_hit_mesh(starts: torch.Tensor, ends: torch.Tensor,
     return t < 1.0
 
 
-def points_inside_mesh(points: torch.Tensor, tri_soa: torch.Tensor,
-                       n_tris) -> torch.Tensor:
-    """Odd-parity inside test along +y, +x and +z, each axis tilted by a
-    small fixed jitter so that axis-aligned edges are not hit exactly on a
-    shared triangle edge."""
+def inside_test_rays(points: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rays of the odd-parity inside test of N points: origins and
+    directions (3N, 3), the points cast along +y, then +x, then +z, each
+    axis tilted by a small fixed jitter so that axis-aligned edges are not
+    hit exactly on a shared triangle edge."""
     n = points.shape[0]
     axes = torch.tensor([[3e-4, 1.0, 7e-4], [1.0, 3e-4, 7e-4],
                          [7e-4, 3e-4, 1.0]], dtype=torch.float32,
                         device=points.device)
-    origins = points.repeat(3, 1)
-    dirs = axes.repeat_interleave(n, dim=0)
+    return points.repeat(3, 1), axes.repeat_interleave(n, dim=0)
+
+
+def inside_from_counts(cnt: torch.Tensor) -> torch.Tensor:
+    """(3N,) hit counts of inside_test_rays -> (N,) inside: odd along all
+    three axes."""
+    odd = ((cnt % 2) == 1).reshape(3, -1)
+    return odd[0] & odd[1] & odd[2]
+
+
+def points_inside_mesh(points: torch.Tensor, tri_soa: torch.Tensor,
+                       n_tris) -> torch.Tensor:
+    """Odd-parity inside test along +y, +x and +z (inside_test_rays)."""
+    origins, dirs = inside_test_rays(points)
     _, cnt = ray_hits(origins, dirs, tri_soa, n_tris, t_min=1e-6)
-    odd = (cnt % 2) == 1
-    return odd[:n] & odd[n:2 * n] & odd[2 * n:]
+    return inside_from_counts(cnt)

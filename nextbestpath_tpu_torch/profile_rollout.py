@@ -21,7 +21,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from .eval.nbp_planning import (MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES,
                                 NBPPlanningRollout, main_path_setup)
-from .models.unet import configure_f32
 
 
 def _busy_us(events) -> float:
@@ -45,7 +44,6 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
-    configure_f32()
     dev = torch.device("cuda")
     params, assets, model = main_path_setup()
     NBPPlanningRollout(assets, model, params=params, seed=MAIN_PATH_SEED,

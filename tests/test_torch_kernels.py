@@ -173,6 +173,134 @@ def test_pinhole_kernel_frames_and_tiles_on_card(n_frames, n_tris):
         assert bool((got[1] > 0).any())
 
 
+def _k2_lanes_expected(n_rays: int, n_sm: int) -> int:
+    g = 1
+    while g < 32 and n_rays * g < n_sm * 16 * 32:
+        g *= 2
+    return g
+
+
+def _k2_against_plain(o, d, soa, n_tris, t_min=1e-6, t_max=3.4e38):
+    kernels.reset_launch_counts()
+    nt = torch.tensor([n_tris], dtype=torch.int32, device="cuda")
+    got = kernels.ray_hits(o, d, soa, nt, t_min, t_max)
+    assert kernels.LAUNCHES["ray_hits"] == 1
+    want = R.ray_hits_plain(o, d, soa, n_tris, t_min, t_max)
+    for g, w in zip(got, want):
+        assert g.shape == (o.shape[0],)
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tris", [0, 1, 252, 257, 2784])
+@pytest.mark.parametrize("n_rays", [1, 31, 289, 2023, 23548, 116736])
+def test_general_kernel_lanes_and_tiles_on_card(n_rays, n_tris):
+    """K2 at the ray counts of the planner's and the later per-frame casts
+    (on an H100's 132 SMs they take G = 32, 32, 32, 32, 4 and 1 lanes a
+    ray; test_general_kernel_every_lane_count_on_card takes the others) and
+    triangle counts at the edges of its 256-triangle tile, read from the
+    device, equals its plain version bit for bit."""
+    _need_card()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kernels.ray_hits_lanes(n_rays) == _k2_lanes_expected(n_rays, n_sm)
+    tris, o, d = _rays(2784, n_rays, seed=n_rays + n_tris)
+    soa = R.tris_to_soa(tris).cuda()
+    t, cnt, idx = _k2_against_plain(o.cuda(), d.cuda(), soa, n_tris)
+    if n_tris >= 252 and n_rays >= 289:
+        assert bool((cnt > 1).any()) and bool((idx >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_general_kernel_every_lane_count_on_card(lanes):
+    """Each lane count G that K2 can take, at the least ray count that
+    selects it on this card (from its SM count), equals its plain version
+    bit for bit."""
+    _need_card()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_rays = -(-n_sm * 16 * 32 // lanes)
+    assert kernels.ray_hits_lanes(n_rays) == lanes
+    assert _k2_lanes_expected(n_rays, n_sm) == lanes
+    tris, o, d = _rays(300, n_rays, seed=lanes)
+    soa = R.tris_to_soa(tris).cuda()
+    t, cnt, idx = _k2_against_plain(o.cuda(), d.cuda(), soa, 257)
+    assert bool((cnt > 1).any()) and bool((idx >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [31, 2023, 116736])
+def test_general_kernel_ties_take_lower_index_on_card(n_rays):
+    """Every triangle twice, the copies 300 apart (so a ray's G lanes split
+    them) and the SoA padded past the count: the nearest index is the lower
+    copy's, as the plain version's, whatever G is."""
+    _need_card()
+    tris, o, d = _rays(300, n_rays, seed=7)
+    soa = R.tris_to_soa(torch.cat([tris, tris, tris[:5]])).cuda()
+    t, cnt, idx = _k2_against_plain(o.cuda(), d.cuda(), soa, 600)
+    hit = idx >= 0
+    assert bool(hit.any())
+    assert bool((idx[hit] < 300).all())
+    assert bool((cnt[hit] % 2 == 0).all())
+
+
+@pytest.mark.cuda
+def test_general_kernel_scene_table_rays_on_card():
+    """The rays of simple/8's tables (sim/tables.py::table_rays), which
+    graze the shared edges of the procgen walls, in the one launch of
+    build_scene_tables."""
+    _need_card()
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.planning.grid_paths import lattice_positions
+    from nextbestpath_tpu_torch.sim.tables import table_rays
+
+    a = pack_generated_scene(generate_scene("simple", seed=8))
+    pos = lattice_positions(torch.from_numpy(a.pose_origin).cuda(),
+                            a.pose_l, a.pose_h)
+    o, d = table_rays(pos)
+    soa = R.tris_to_soa(torch.from_numpy(a.tris).cuda())
+    t, cnt, _ = _k2_against_plain(o.contiguous(), d.contiguous(), soa,
+                                  a.n_tris)
+    assert o.shape[0] == 7 * a.pose_l * a.pose_h
+    assert bool((cnt > 0).any()) and bool((t < 1.0).any())
+
+
+@pytest.mark.cuda
+def test_rollout_turns_tf32_off_on_card():
+    """NBPPlanningRollout on the card runs the U-Net's convolutions with
+    cuDNN's TF32 off whatever the caller set, and the caller's flags are
+    back after the run."""
+    _need_card()
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.eval.nbp_planning import NBPPlanningRollout
+    from nextbestpath_tpu_torch.models.unet import NBP
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        p = default_params(image_height=32, image_width=56, points_per_frame=256,
+                           full_pc_capacity=65536, n_gt_surface_points=2048,
+                           max_path_len=32, pc2img_size=[64, 64],
+                           value_map_size=[16, 16])
+        a = pack_generated_scene(generate_scene("simple", seed=4), params=p)
+        model = NBP(width=4)
+        seen = []
+        model.conv_blocks[0].register_forward_pre_hook(
+            lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+        NBPPlanningRollout(a, model, params=p, device="cuda").run(n_poses=1)
+        assert seen and not any(seen)
+        assert torch.backends.cudnn.allow_tf32 is True
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
 @pytest.mark.cuda
 def test_launchers_check_dtype_and_shape_on_card():
     _need_card()

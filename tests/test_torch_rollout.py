@@ -157,6 +157,45 @@ def test_rollout_matches_jax_host_rollout(difficulty, scene_seed, n_poses):
     assert max(got.coverage_evolution[1:]) > got.coverage_evolution[0]
 
 
+@pytest.mark.slow
+def test_rollout_matches_jax_host_rollout_full_width():
+    """The main path's configuration (eval.nbp_planning.main_path_setup:
+    simple/8 at default_params(), 256x456 frames, 2M point capacity, 20000
+    GT points, 6144 points a frame) for 2 poses against the JAX host rollout,
+    with the same tolerances as the small config."""
+    from nextbestpath_tpu_torch.eval.nbp_planning import (MAIN_PATH_SEED,
+                                                          main_path_setup)
+
+    n_poses = 2
+    t_params, t_assets, _ = main_path_setup()
+    params = default_params()
+    assets = pack_generated_scene(generate_scene("simple", seed=MAIN_PATH_SEED),
+                                  params=params)
+    assert (params.image_height, params.image_width) == (
+        t_params.image_height, t_params.image_width) == (256, 456)
+    assert assets.tris.tobytes() == t_assets.tris.tobytes()
+    model, variables = _flax_model()
+    host = NBPPlanningRollout(assets, model, variables, params=params,
+                              seed=MAIN_PATH_SEED, shared_rng=True,
+                              max_plan_retries=8)
+    want = host.run(n_poses=n_poses)
+
+    t_model = TorchNBP()
+    t_model.load_state_dict(flax_to_state_dict(variables["params"],
+                                               variables["batch_stats"]))
+    roll = TorchRollout(t_assets, t_model, params=t_params,
+                        draws=JaxDraws(MAIN_PATH_SEED), max_plan_retries=8,
+                        device="cpu")
+    got = roll.run(n_poses=n_poses)
+
+    assert len(got.coverage_evolution) == n_poses
+    np.testing.assert_allclose(got.coverage_evolution, want.coverage_evolution,
+                               atol=COV_ATOL)
+    assert got.n_points == want.n_points
+    assert got.cam_positions.shape == want.cam_positions.shape
+    np.testing.assert_allclose(got.cam_positions, want.cam_positions, atol=1e-5)
+
+
 def test_rollout_default_draws_run_and_repeat():
     """The port's own provider: two runs from one seed agree exactly."""
     params = TC.default_params(**SMALL)
@@ -176,6 +215,32 @@ def test_torch_draws_randint_range():
     vals = [int(d.randint("cov", 1, torch.tensor(5))) for _ in range(200)]
     assert min(vals) == 1 and max(vals) == 4
     assert d.uniform("obs", (3, 4)).shape == (3, 4)
+
+
+def test_rollout_turns_tf32_off():
+    """The rollout's U-Net runs its convolutions with cuDNN's TF32 off
+    whatever the caller set, so no caller runs them in TF32 against the f32
+    reference by omission, and the caller's flags are back after the run
+    (the card twin is in tests/test_torch_kernels.py)."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        params = TC.default_params(**SMALL)
+        a = TA.pack_generated_scene(TA.generate_scene("simple", seed=4),
+                                    params=params)
+        model = TorchNBP(width=4)
+        seen = []
+        model.conv_blocks[0].register_forward_pre_hook(
+            lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+        TorchRollout(a, model, params=params, device="cpu").run(n_poses=1)
+        assert seen and not any(seen)
+        assert torch.backends.cudnn.allow_tf32 is True
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
 
 
 def test_cuda_requested_without_card_raises():
