@@ -13,7 +13,8 @@ Phases, each of which raises on failure (exit code != 0):
    move's four frames in one launch; K2 at the scene tables in one launch,
    the inside test alone, the ``insane`` scene's tables and a frame's rays,
    with the lanes a ray it takes and its time at zero triangles; K3 at
-   full, partial and zero counts),
+   full, partial and zero counts; the planner kernels nbp_bfs_field and
+   nbp_extract_path at the main path's lattice and a 58x58 maze),
    with its time, its plain version's time, a library call's time where
    one computes the same function, the least time the card could take for
    the same work, and that work's time at one instruction an operation
@@ -27,7 +28,17 @@ Phases, each of which raises on failure (exit code != 0):
    then the move's four frames in one launch), K2 once (the scene's tables),
    K3 once a pose, and coverage must rise;
 5. a reference check: a small rollout on the card against the same rollout
-   on the CPU (plain versions), with the same draws and weights.
+   on the CPU (plain versions), with the same draws and weights;
+6. the device-resident scan rollout (``eval.scan_rollout.ScanRollout``) on
+   the main path: its pose step captured as CUDA graphs, then 6 poses
+   replayed with one host read a pose. Launch counts are set to 0 just
+   before its construction and read after the warm-up and after the run:
+   K2 once (the scene), then a pose K1 twice and K3 once, and the planner
+   kernels (``nbp_bfs_field``, ``nbp_extract_path``) max_plan_retries times
+   each on regeneration poses only, which alone replay the U-Net; coverage
+   must rise. Then a small scan rollout captured against the same rollout
+   run eagerly on the card (bit for bit) and on the CPU (within 1e-3, the
+   same trajectory).
 
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
@@ -69,6 +80,22 @@ NO_FMA_OPS = 33.5e12
 # pairs that pass (and K2's t_scaled dot before them) are left out.
 OPS_K1, OPS_K2, OPS_K3 = 20, 44, 9
 
+# The planner kernels' integer work, as the functions need it rather than
+# as the kernels do it. A distance field needs one relaxation an edge, as a
+# frontier BFS does: the edge's flag, the load, the add and the min, four
+# operations for each of a node's four incoming edges (16 a node), once;
+# the kernel's repeated sweeps (one a level of the start's eccentricity)
+# are its own choice. Its bytes: the edge flags and the start read, the
+# distances written. A path walk needs, a step, the test of the one
+# predecessor it takes: its two coordinates, their four bound compares, the
+# edge flag and the distance compare (8 operations), reading that
+# predecessor's flag and distance (5 bytes); then it writes the max_len
+# path slots and the length and reachability. The H100's int32 peak: 64
+# INT32 lanes an SM, an IMAD counted as two operations as the FMA is (H100
+# white paper, 33.5 TOPS at 700 W).
+OPS_BFS_NODE, OPS_WALK_STEP, BYTES_WALK_STEP = 16, 8, 5
+PEAK_INT32_OPS = 33.5e12
+
 TOL_COVERAGE = 1e-3    # small rollout: card vs CPU coverage curve
 
 
@@ -76,14 +103,111 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def ceiling_ms(n_ops: float) -> float:
     return n_ops / NO_FMA_OPS * 1e3
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Host-clock time of one call of ``fn``, synchronized: for plain
+    versions that read the card on the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def serpentine(L: int, H: int, device):
+    """(4, L, H) bool blocked edges of a serpentine maze: one opening a
+    row, at alternating ends, so the path winds through every node."""
+    import numpy as np
+    import torch
+    blocked = np.zeros((4, L, H), bool)
+    for j in range(H - 1):
+        blocked[2, :, j] = True
+        blocked[3, :, j + 1] = True
+        open_row = (L - 1) if j % 2 == 0 else 0
+        blocked[2, open_row, j] = blocked[3, open_row, j + 1] = False
+    return torch.from_numpy(blocked).to(device)
+
+
+def plan_kernel_rows(assets, soa, n_tris, max_len, dev):
+    """nbp_bfs_field and nbp_extract_path against their plain versions,
+    integer-exact: at the main path's 17x17 lattice (the scene's GT edge
+    table as the blocked edges, from the start pose, to the farthest
+    reachable node) and at a 58x58 serpentine maze (the procgen ``insane``
+    lattice's size) from a corner to the far corner, past max_len. Returns
+    the kernels JSON rows at the main path's case."""
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.planning.grid_paths import (
+        INF, bfs_distance_field_plain, extract_path_plain)
+    from nextbestpath_tpu_torch.sim.tables import build_scene_tables
+
+    tables = build_scene_tables(soa, n_tris,
+                                torch.from_numpy(assets.pose_origin).to(dev),
+                                assets.pose_l, assets.pose_h)
+    start = torch.tensor([int(assets.start_cam_idx[0]), int(assets.start_cam_idx[2])],
+                         dtype=torch.int64, device=dev)
+    cases = [("main", tables.gt_edge_blocked.contiguous(), start),
+             ("maze", serpentine(58, 58, dev), torch.zeros(2, dtype=torch.int64, device=dev))]
+    out = {}
+    for name, blocked, st in cases:
+        L, H = blocked.shape[1], blocked.shape[2]
+        dist_k = kernels.bfs_field(blocked, st)
+        dist_p = bfs_distance_field_plain(blocked, st, L, H)
+        reach = dist_p < INF
+        ecc = int(dist_p[reach].max())
+        flat = int(torch.argmax(torch.where(reach, dist_p, -1)))
+        goal = torch.tensor([flat // H, flat % H], dtype=torch.int64, device=dev)
+        path_k, meta_k = kernels.extract_path(dist_k, blocked, goal, max_len)
+        path_p, len_p, reach_p = extract_path_plain(dist_p, blocked, goal, L, H, max_len)
+        same = (torch.equal(dist_k, dist_p) and torch.equal(path_k, path_p)
+                and int(meta_k[0]) == int(len_p) and bool(meta_k[1]) == bool(reach_p))
+        log(f"planner kernels ({name}): {L}x{H} lattice, {int(reach.sum())} reachable, "
+            f"eccentricity {ecc}, path length {int(len_p)} of {ecc} (max_len {max_len}), "
+            f"equal to the plain versions: {same}")
+        if not same:
+            raise AssertionError(f"the planner kernels disagree with their plain versions ({name})")
+        n = L * H
+        steps = ecc  # the walk from the farthest node back to the start
+        bfs_ops = n * OPS_BFS_NODE
+        walk_ops = steps * OPS_WALK_STEP
+        out[name] = dict(
+            shape=f"{L}x{H} lattice, eccentricity {ecc}, path to the farthest node "
+                  f"(max_len {max_len})",
+            bfs=dict(ms=kernels.device_ms(lambda: kernels.bfs_field(blocked, st), 50),
+                     plain_ms=wall_ms(lambda: bfs_distance_field_plain(blocked, st, L, H), 5),
+                     bound=bound_ms(4 * n + 16 + 4 * n, bfs_ops, PEAK_INT32_OPS)),
+            walk=dict(ms=kernels.device_ms(
+                          lambda: kernels.extract_path(dist_k, blocked, goal, max_len), 50),
+                      plain_ms=wall_ms(lambda: extract_path_plain(
+                          dist_p, blocked, goal, L, H, max_len), 5),
+                      bound=bound_ms(16 + 4 + steps * BYTES_WALK_STEP
+                                     + 8 * max_len + 8, walk_ops,
+                                     PEAK_INT32_OPS)))
+        for k in ("bfs", "walk"):
+            r = out[name][k]
+            log(f"  {k} ({name}): {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound'][0]:.3g} ms by {r['bound'][1]})")
+    main = out["main"]
+    return [dict(name=name, route="cuda", source="nextbestpath_tpu_torch/csrc/plan.cu",
+                 replaces=rep, max_abs_err=0.0, ms=main[k]["ms"],
+                 plain_ms=main[k]["plain_ms"], bound_ms=main[k]["bound"][0],
+                 bound_by=main[k]["bound"][1], ceiling_ms=None, library_ms=None,
+                 shape=main["shape"], maze_ms=out["maze"][k]["ms"])
+            for name, k, rep in (
+                ("bfs_field", "bfs", "nextbestpath_tpu/planning/grid_paths.py:102 (XLA while_loop)"),
+                ("extract_path", "walk", "nextbestpath_tpu/planning/grid_paths.py:160 (XLA while_loop)"))]
 
 
 def compare_hits(name, got, want, n_rays):
@@ -186,6 +310,7 @@ def main() -> int:
     from nextbestpath_tpu_torch.eval.nbp_planning import (
         MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES, NBPPlanningRollout,
         main_path_move, main_path_setup, seeded_nbp)
+    from nextbestpath_tpu_torch.eval.scan_rollout import ScanRollout
     from nextbestpath_tpu_torch.geometry.cameras import (CameraIntrinsics,
                                                          get_camera_RT)
     from nextbestpath_tpu_torch.ops.coverage import min_sq_dists_plain
@@ -343,6 +468,7 @@ def main() -> int:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, no-FMA ceiling "
             f"{r['ceiling_ms']:.4f} ms, library {r['library_ms']}) at {r['shape']}")
+    rows += plan_kernel_rows(assets, soa, n_tris, int(params.max_path_len), dev)
     k1_row, k3_row = rows[0], rows[2]
     log(f"  ray_hits_pinhole: {k1_row['ms_per_frame']:.4f} ms a frame in the "
         f"{n_steps}-frame launch; one frame alone {k1_row['b1_ms']:.4f} ms (plain "
@@ -387,8 +513,7 @@ def main() -> int:
         if launches[name] != k:
             raise AssertionError(f"kernel {name} launched {launches[name]} times on "
                                  f"the main path, expected {k}")
-    for r, key in zip(rows, ("ray_hits_pinhole", "ray_hits", "min_sq_dists")):
-        r["launches"] = launches[key]
+    host_ms = res.wall_time_s / n_poses * 1e3
 
     # 5. Reference check: a small rollout on the card and on the CPU.
     small = default_params(image_height=32, image_width=56, points_per_frame=256,
@@ -413,9 +538,91 @@ def main() -> int:
     if diff > TOL_COVERAGE or not same_path:
         raise AssertionError("the card's small rollout disagrees with the CPU's")
 
+    # 6. The scan rollout on the main path, its pose step replayed as CUDA
+    # graphs. Counts are zeroed before its construction (the scene's K2
+    # launch) and read after the warm-up run, which captures the graphs,
+    # and after the measured run.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    scan = ScanRollout(assets, model, params=params, device=dev)
+    t_construct = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan.run(n_poses=MAIN_PATH_WARMUP_POSES, seed=MAIN_PATH_SEED)
+    t_warm = time.perf_counter() - t0
+    setup = dict(kernels.LAUNCHES)
+    res = scan.run(n_poses=n_poses, seed=MAIN_PATH_SEED)
+    scan_launches = dict(kernels.LAUNCHES)
+    run_launches = {k: scan_launches[k] - setup[k] for k in setup}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    cov = res.coverage_evolution
+    n_regen = sum(scan.regen_poses)
+    scan_ms = res.wall_time_s / n_poses * 1e3
+    log(f"scan rollout simple/{MAIN_PATH_SEED}, {n_poses} poses: coverage "
+        f"{[round(c, 4) for c in cov]}, auc {res.auc:.4f}, points {res.n_points}, "
+        f"regeneration poses {scan.regen_poses}")
+    log(f"scan rollout: construction {t_construct * 1e3:.1f} ms, warm-up of "
+        f"{MAIN_PATH_WARMUP_POSES} poses with the capture {t_warm * 1e3:.1f} ms, "
+        f"{scan_ms:.2f} ms/pose ({res.steps_per_sec:.2f} poses/s) against the host "
+        f"rollout's {host_ms:.2f} ms/pose, peak memory {peak:.0f} MiB; graph launches "
+        f"{scan.graph_launches}, replays {scan.replays}, host reads {scan.host_reads}; "
+        f"launches: construction and warm-up {setup}, run {run_launches}")
+    if not all(c == c and 0.0 <= c <= 1.0 for c in cov) or not max(cov[1:]) > cov[0]:
+        raise AssertionError(f"scan coverage does not rise: {cov}")
+    retries = scan.max_plan_retries
+    want_run = {"ray_hits_pinhole": 1 + 2 * n_poses, "ray_hits": 0,
+                "min_sq_dists": n_poses, "bfs_field": retries * n_regen,
+                "extract_path": retries * n_regen}
+    want_replays = {"pre": n_poses, "plan": n_regen, "post": n_poses}
+    if (run_launches != want_run or setup["ray_hits"] != 1 or n_regen < 1
+            or scan.replays != want_replays or scan.host_reads != n_poses):
+        raise AssertionError(
+            f"scan rollout: launches {run_launches} (expected {want_run}), K2 "
+            f"{setup['ray_hits']} at construction (expected 1), replays "
+            f"{scan.replays} (expected {want_replays}), host reads "
+            f"{scan.host_reads} (expected {n_poses})")
+    for r in rows:
+        key = r["name"]
+        r["launches"] = launches[key] + scan_launches[key]
+        r["launches_by_path"] = {"host": launches[key], "scan": scan_launches[key]}
+        if r["launches"] <= 0:
+            raise AssertionError(f"kernel {key} was launched on no main path")
+
+    # The captured step against the same step run eagerly on the card and
+    # on the CPU, on the small configuration with one CPU generator's draws.
+    small_runs = {}
+    for label, d, graphs in (("graphs", "cuda", True), ("eager", "cuda", False),
+                             ("cpu", "cpu", False)):
+        r = ScanRollout(s_assets, seeded_nbp(), params=small, device=d,
+                        draws=TorchDraws(8, torch.device(d), "cpu"))
+        r._use_graphs = graphs
+        out = r.run(n_poses=8)
+        small_runs[label] = (out, r.regen_poses,
+                             r.state.pc.points[:out.n_points].cpu())
+    (g, g_regen, g_pts), (e, e_regen, e_pts), (c, c_regen, _) = (
+        small_runs[k] for k in ("graphs", "eager", "cpu"))
+    bitwise = (g.coverage_evolution == e.coverage_evolution
+               and (g.cam_positions == e.cam_positions).all()
+               and g.n_points == e.n_points and torch.equal(g_pts, e_pts)
+               and g_regen == e_regen)
+    diff = max(abs(a - b) for a, b in zip(e.coverage_evolution, c.coverage_evolution))
+    same_path = (e.cam_positions.shape == c.cam_positions.shape
+                 and float(abs(e.cam_positions - c.cam_positions).max()) < 1e-4
+                 and e.n_points == c.n_points and e_regen == c_regen)
+    log(f"scan reference check (32x56, 8 poses, regeneration {g_regen}): captured "
+        f"{g.coverage_evolution} vs eager {e.coverage_evolution}, bit for bit "
+        f"{bitwise}; eager vs cpu {c.coverage_evolution}, max diff {diff:.2e}, "
+        f"same trajectory {same_path}")
+    if not bitwise:
+        raise AssertionError("the captured scan rollout differs from the eager one")
+    if diff > TOL_COVERAGE or not same_path:
+        raise AssertionError("the card's scan rollout disagrees with the CPU's")
+
     log(smi)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "ceiling_ms", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "ceiling_ms",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

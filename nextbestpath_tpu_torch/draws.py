@@ -31,7 +31,8 @@ class TorchDraws:
 
     ``generator_device`` may differ from ``device`` (a CPU generator with
     draws moved to the card gives the same numbers on both devices). Draws
-    stay on the device: ``randint`` takes a tensor bound and never syncs.
+    stay on the device: ``randint`` takes tensor or host bounds and, with a
+    generator on the device, never syncs.
     """
 
     def __init__(self, seed: int, device: torch.device,
@@ -54,7 +55,10 @@ class TorchDraws:
                 step: Optional[int] = None) -> torch.Tensor:
         """Integer in [low, high) as a 0-d int64 tensor on the device."""
         u = self.uniform(role, ()).double()
-        lo = torch.as_tensor(low, device=self.device).long()
-        hi = torch.as_tensor(high, device=self.device).long()
-        span = torch.clamp(hi - lo, min=1)
-        return lo + torch.minimum(torch.floor(u * span).long(), span - 1)
+        lo, hi = (x.long() if isinstance(x, torch.Tensor) else int(x)
+                  for x in (low, high))
+        # Host bounds stay host scalars: no copy to the device.
+        span = hi - lo
+        span = (span.clamp(min=1) if isinstance(span, torch.Tensor)
+                else max(span, 1))
+        return lo + torch.clamp(torch.floor(u * span).long(), max=span - 1)

@@ -25,6 +25,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..assets import generate_scene, pack_generated_scene
 from ..assets.scene_assets import SceneAssets
@@ -35,7 +36,8 @@ from ..geometry.cameras import CameraIntrinsics
 from ..models.unet import NBP
 from ..ops.coverage import compute_auc, coverage_percentage
 from ..ops.raytrace import tris_to_soa
-from ..ops.scatter2d import binned_count_imgs, count_img, height_bins
+from ..ops.scatter2d import (binned_count_imgs, count_img, height_bins,
+                             plan_count_imgs)
 from ..planning.candidates import score_candidates_test
 from ..planning.grid_paths import (DIRS, EDGE_COLLISION, EDGE_PASSABLE, INF,
                                    apply_edge_memo, bfs_distance_field,
@@ -64,10 +66,9 @@ def build_model_input(pc: PointBuffer, traj: TrajectoryBuffer,
                       grid_range: Grid = (-40.0, 40.0)):
     """(1, S, S, n_pieces+1) NHWC model input and the trajectory image:
     n_pieces height-sliced count images of the cloud + the trajectory's."""
-    pts = pc.points[:int(pc.count)]
-    pc_imgs = binned_count_imgs(pts, cam_xyz, y_bins, n_pieces, img_size,
-                                grid_range)
-    traj_img = count_img(traj.xyz[:int(traj.count)], cam_xyz, img_size,
+    pc_imgs = binned_count_imgs(pc.points, pc.valid_mask(), cam_xyz, y_bins,
+                                n_pieces, img_size, grid_range)
+    traj_img = count_img(traj.xyz, traj.valid_mask(), cam_xyz, img_size,
                          grid_range)
     x = torch.cat([pc_imgs, traj_img[None]], dim=0)
     return x.permute(1, 2, 0)[None].contiguous(), traj_img
@@ -77,12 +78,14 @@ def _layout_projections(pc: PointBuffer, cam_pose5: torch.Tensor,
                         img_size: int, grid_range: Grid):
     """(proj, filt): the clamped full-cloud projection and the clamped
     current-height slice |y - cam_y| < 0.1."""
-    pts = pc.points[:int(pc.count)]
+    pts = pc.points
+    valid = pc.valid_mask()
     cam_y = cam_pose5[1]
-    proj = count_img(pts, cam_pose5[:3], img_size, grid_range).clamp(max=1.0)
-    band = (pts[:, 1] < cam_y + 0.1) & (pts[:, 1] > cam_y - 0.1)
-    filt = count_img(pts, cam_pose5[:3], img_size, grid_range,
-                     mask=band).clamp(max=1.0)
+    proj = count_img(pts, valid, cam_pose5[:3], img_size,
+                     grid_range).clamp(max=1.0)
+    band = valid & (pts[:, 1] < cam_y + 0.1) & (pts[:, 1] > cam_y - 0.1)
+    filt = count_img(pts, band, cam_pose5[:3], img_size,
+                     grid_range).clamp(max=1.0)
     return proj, filt
 
 
@@ -102,10 +105,16 @@ def build_plan_projections(pc: PointBuffer, traj: TrajectoryBuffer,
                            n_pieces: int = 4, img_size: int = 256,
                            grid_range: Grid = (-40.0, 40.0)):
     """(model_input, traj_img, proj, filt): build_model_input's outputs and
-    fuse_layout's two clamped projections."""
-    model_input, traj_img = build_model_input(pc, traj, cam_pose5[:3], y_bins,
-                                              n_pieces, img_size, grid_range)
-    proj, filt = _layout_projections(pc, cam_pose5, img_size, grid_range)
+    fuse_layout's two clamped projections, from one scatter over the cloud
+    (ops.scatter2d.plan_count_imgs) and one over the trajectory."""
+    imgs = plan_count_imgs(pc.points, pc.valid_mask(), cam_pose5[:3], y_bins,
+                           cam_pose5[1], n_pieces, img_size, grid_range)
+    traj_img = count_img(traj.xyz, traj.valid_mask(), cam_pose5[:3],
+                         img_size, grid_range)
+    x = torch.cat([imgs[:n_pieces], traj_img[None]], dim=0)
+    model_input = x.permute(1, 2, 0)[None].contiguous()
+    proj = imgs[:n_pieces + 1].sum(dim=0).clamp(max=1.0)
+    filt = imgs[n_pieces + 1].clamp(max=1.0)
     return model_input, traj_img, proj, filt
 
 
@@ -119,11 +128,12 @@ def fuse_layout(pred_obstacle: torch.Tensor, pc: PointBuffer,
 
 def select_goal(scores: torch.Tensor, dist: torch.Tensor, L: int, H: int):
     """Best-scoring candidate that is reachable (dist in [1, INF)).
-    Returns ((l, h), found) as host ints and bool."""
+    Returns (goal (2,) int64 (l, h), found 0-d bool), both on the device
+    of the inputs (no sync)."""
     ok = (dist >= 1) & (dist < INF) & (scores > -1e29)
     masked = torch.where(ok, scores, torch.full_like(scores, -float("inf")))
-    flat_idx = int(torch.argmax(masked.reshape(-1)))
-    return (flat_idx // H, flat_idx % H), bool(ok.any())
+    flat_idx = torch.argmax(masked.reshape(-1))
+    return torch.stack([flat_idx // H, flat_idx % H]), ok.any()
 
 
 @dataclasses.dataclass
@@ -245,21 +255,24 @@ class NBPPlanningRollout:
 
         for pose_i in range(n_poses):
             self.draws.begin_pose()
-            c = torch.clamp(pc.count, min=1)
-            start_i = self.draws.randint("cov", 0, c)
-            stride_half = self.draws.randint(
-                "cov", 1, torch.clamp(c // 2, min=2), step=1)
-            cov = float(coverage_percentage(self.gt, pc.points, pc.count,
-                                            start_i, stride_half))
+            with record_function("coverage"):
+                c = torch.clamp(pc.count, min=1)
+                start_i = self.draws.randint("cov", 0, c)
+                stride_half = self.draws.randint(
+                    "cov", 1, torch.clamp(c // 2, min=2), step=1)
+                cov = float(coverage_percentage(self.gt, pc.points, pc.count,
+                                                start_i, stride_half))
             coverage_evolution.append(cov)
 
             cur_pose5 = self._pose5(cur)
-            observe_current(self.tri_soa, self.n_tris, cur_pose5, pc,
-                            self.draws.uniform("obs", (n_px,)), self.intr,
-                            **self._capture_kw())
-            model_input, traj_img = build_model_input(
-                pc, traj, cur_pose5[:3], self.y_bins,
-                n_pieces=int(p.n_pieces), img_size=img_size)
+            with record_function("observe"):
+                observe_current(self.tri_soa, self.n_tris, cur_pose5, pc,
+                                self.draws.uniform("obs", (n_px,)), self.intr,
+                                **self._capture_kw())
+            with record_function("projections"):
+                model_input, traj_img = build_model_input(
+                    pc, traj, cur_pose5[:3], self.y_bins,
+                    n_pieces=int(p.n_pieces), img_size=img_size)
 
             regen = pose_i == 0 or path_record >= len(path)
             if not regen:
@@ -277,21 +290,23 @@ class NBPPlanningRollout:
                 if _edge_dir(a, b) is not None:
                     _memo_edge(edge_memo, a, b, EDGE_PASSABLE)
 
-            value_map, obstacle_map = self.model(model_input)
+            with record_function("unet"):
+                value_map, obstacle_map = self.model(model_input)
             if regen:
-                layout, proj256 = fuse_layout(
-                    obstacle_map[0, :, :, 0], pc, traj_img, cur_pose5,
-                    img_size=img_size)
-                scores = score_candidates_test(
-                    self.tables.positions, cur_pose5[:3], value_map[0],
-                    proj256, torch.from_numpy(banned).to(dev),
-                    value_map_size=int(p.value_map_size[0]),
-                    layout_size=img_size)
-                plan_u = self.draws.uniform(
-                    "plan", (int(p.max_path_len), self.n_azim))
-                path, path_record = self._plan(
-                    scores, layout, cur_pose5, cur, edge_memo, value_map[0],
-                    visited_rot, gt_eb, plan_u)
+                with record_function("plan"):
+                    layout, proj256 = fuse_layout(
+                        obstacle_map[0, :, :, 0], pc, traj_img, cur_pose5,
+                        img_size=img_size)
+                    scores = score_candidates_test(
+                        self.tables.positions, cur_pose5[:3], value_map[0],
+                        proj256, torch.from_numpy(banned).to(dev),
+                        value_map_size=int(p.value_map_size[0]),
+                        layout_size=img_size)
+                    plan_u = self.draws.uniform(
+                        "plan", (int(p.max_path_len), self.n_azim))
+                    path, path_record = self._plan(
+                        scores, layout, cur_pose5, cur, edge_memo,
+                        value_map[0], visited_rot, gt_eb, plan_u)
 
             if not path:
                 rot = int(self.draws.randint("rot", 0, self.n_azim))
@@ -303,11 +318,12 @@ class NBPPlanningRollout:
                     nxt = (nxt[0], nxt[1], rot)
 
             idx_history.append(cur)
-            move_and_capture(self.tri_soa, self.n_tris, cur_pose5,
-                             self._pose5(nxt), pc, traj,
-                             self._frame_scores("move"), self.intr,
-                             n_steps=n_steps, n_azim=self.n_azim,
-                             **self._capture_kw())
+            with record_function("move"):
+                move_and_capture(self.tri_soa, self.n_tris, cur_pose5,
+                                 self._pose5(nxt), pc, traj,
+                                 self._frame_scores("move"), self.intr,
+                                 n_steps=n_steps, n_azim=self.n_azim,
+                                 **self._capture_kw())
             visited_rot[nxt] = True
             cur = nxt
             path_record += 1
@@ -335,16 +351,17 @@ class NBPPlanningRollout:
             self.tables.positions, cur_pose5[:3], layout, self.L, self.H,
             layout_size=int(p.pc2img_size[0]))
         visited = torch.from_numpy(visited_rot).to(dev)
+        start = torch.tensor(cur[:2], dtype=torch.int64, device=dev)
         for _ in range(self.max_plan_retries):
             blocked = apply_edge_memo(layout_blocked,
                                       torch.from_numpy(edge_memo).to(dev))
-            dist = bfs_distance_field(blocked, (cur[0], cur[1]), self.L,
-                                      self.H)
+            dist = bfs_distance_field(blocked, start, self.L, self.H)
             goal, found = select_goal(scores, dist, self.L, self.H)
-            if not found:
+            if not bool(found):
                 return [], 0
             path_arr, path_len, _ = extract_path(dist, blocked, goal, self.L,
                                                  self.H, max_len=max_len)
+            path_len = int(path_len)
             rots = pick_orientations(
                 path_arr, torch.arange(max_len, device=dev) < path_len,
                 value_map, self.tables.positions, cur_pose5[:3], visited,

@@ -1,0 +1,566 @@
+"""Device-resident NBP evaluation rollout, replayed as CUDA graphs.
+
+Port of ``nextbestpath_tpu/eval/scan_rollout.py::ScanRollout``. The JAX class
+compiles a pose's whole step into one ``lax.scan`` body; here the step is
+three functions over a state that stays on the device:
+
+* ``pre``: the coverage metric (K3), the loop-start frame (K1), the
+  regeneration decision, and the collision and passable edge memos;
+* ``plan`` (regeneration poses only): the one-pass projections, the U-Net,
+  layout fusion, candidate scoring and edge blocking, then up to
+  ``max_plan_retries`` planning attempts (the distance field and the path
+  walk: ``nbp_bfs_field`` and ``nbp_extract_path``), each predicated on the
+  device and masked once one succeeded, as the JAX ``fori_loop``/``cond``;
+* ``post``: the next index, anti-revisit on the visited (position,
+  rotation) grid, the move's four frames in one K1 launch, and the state
+  update.
+
+On the card each of the three is captured once as a ``torch.cuda.CUDAGraph``
+over static tensors that it updates in place. A pose replays ``pre``, reads
+the one-byte regeneration flag into pinned host memory (the pose's only
+sync), replays ``plan`` when it is set, then replays ``post``. On the CPU
+the same functions run eagerly (on the card too when ``_use_graphs`` is
+cleared, as the checks of the captured step do).
+
+The random draws do not run inside the graphs: before each pose the
+provider (``draws.py``, roles as the JAX scan's 7-way key split) writes them
+into static buffers, and the plan's orientation draws are written once the
+flag says the plan runs. A captured and an uncaptured run with the same
+provider therefore see the same numbers.
+
+Behaviour kept from the JAX class: the U-Net runs only on regeneration
+poses (its output is unused otherwise), and anti-revisit tests the visited
+(position, rotation) grid rather than the host rollout's history list.
+Not ported: the ``stratified_sampling`` and ``batched_capture`` options
+(they raise), ``segment_len`` (a TPU watchdog workaround that gives
+identical results), the ``ablate`` profiling switch (the stage ranges of
+``torch.profiler.record_function`` take its place), ``BatchedScanRollout``
+and ``run_interleaved``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .. import kernels
+from ..assets.scene_assets import SceneAssets
+from ..config import Params, default_params
+from ..device import DeviceLike, resolve_device
+from ..draws import TorchDraws
+from ..geometry.cameras import CameraIntrinsics
+from ..models.fold import fold_bn as fold_bn_model
+from ..models.unet import NBP
+from ..ops.coverage import compute_auc, coverage_percentage
+from ..ops.raytrace import tris_to_soa
+from ..ops.scatter2d import height_bins
+from ..planning.candidates import score_candidates_test
+from ..planning.grid_paths import (DIRS, EDGE_COLLISION, EDGE_PASSABLE,
+                                   apply_edge_memo, bfs_distance_field,
+                                   extract_path, layout_edge_blocked,
+                                   pick_orientations)
+from ..sim.rollout import TrajectoryBuffer, move_and_capture, observe_current
+from ..sim.sensor import PointBuffer
+from ..sim.tables import build_scene_tables
+from .nbp_planning import (RolloutResult, build_plan_projections,
+                           fuse_layout_from_projections, select_goal)
+
+# The static buffers hold at least this many poses (the reference's budget),
+# so rollouts up to it reuse one capture. The trajectory buffer's size does
+# not change results: a rollout never fills it.
+MIN_POSE_CAPACITY = 101
+
+
+def _edge_dir_index(a_lh: torch.Tensor, b_lh: torch.Tensor) -> torch.Tensor:
+    """Direction index (0-d int64) of the edge a -> b, -1 when it is not a
+    unit move."""
+    dl = (b_lh[0] - a_lh[0]).long()
+    dh = (b_lh[1] - a_lh[1]).long()
+    idx = torch.full_like(dl, -1)
+    for k, (kl, kh) in enumerate(DIRS):
+        idx = torch.where((dl == kl) & (dh == kh), k, idx)
+    return idx
+
+
+def _memo_edge(memo: torch.Tensor, a_lh: torch.Tensor, b_lh: torch.Tensor,
+               state: int, when: torch.Tensor) -> torch.Tensor:
+    """memo with the edge a -> b and its reverse set to ``state`` where
+    ``when`` holds; a pair that is not adjacent is dropped."""
+    _, L, H = memo.shape
+    cell = torch.arange(memo.numel(), device=memo.device).view(memo.shape)
+    hit = torch.zeros_like(memo, dtype=torch.bool)
+    for p, q in ((a_lh, b_lh), (b_lh, a_lh)):
+        d = _edge_dir_index(p, q)
+        on = (d >= 0) & (p[0] >= 0) & (p[0] < L) & (p[1] >= 0) & (p[1] < H)
+        hit = hit | ((cell == (d * L + p[0]) * H + p[1]) & on)
+    return torch.where(hit & when, state, memo)
+
+
+def _at(t: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
+    """t[idx] for 0-d index tensors (in range), as a gather on the device:
+    no index is read on the host."""
+    flat = idx[0]
+    for k, i in enumerate(idx[1:], 1):
+        flat = flat * t.shape[k] + i
+    rows = t.reshape(-1, *t.shape[len(idx):])
+    return rows.index_select(0, flat.reshape(1).long())[0]
+
+
+@dataclasses.dataclass
+class SceneArrays:
+    """Per-scene device constants."""
+
+    tri_soa: torch.Tensor          # (9, F)
+    n_tris: torch.Tensor           # (1,) int32
+    gt: torch.Tensor               # (G, 3)
+    positions: torch.Tensor        # (L, H, 3)
+    gt_edge_blocked: torch.Tensor  # (4, L, H) bool
+    y_bins: torch.Tensor           # (n_pieces + 1,)
+    azims: torch.Tensor            # (A,)
+
+
+@dataclasses.dataclass
+class ScanState:
+    """The rollout's state, static tensors updated in place."""
+
+    pc: PointBuffer
+    traj: TrajectoryBuffer
+    cur: torch.Tensor          # (3,) int64: (i_l, i_h, rot)
+    prev: torch.Tensor         # (3,) int64: the previous pose
+    has_prev: torch.Tensor     # bool
+    path: torch.Tensor         # (P, 3) int64 waypoints with rotation
+    path_len: torch.Tensor     # int64 (0 = no path)
+    path_record: torch.Tensor  # int64
+    edge_memo: torch.Tensor    # (4, L, H) int8
+    banned: torch.Tensor       # (L, H) bool
+    visited_rot: torch.Tensor  # (L, H, A) bool: every occupied (pos, rot)
+    pose_i: torch.Tensor       # int64
+
+    @staticmethod
+    def create(pc_capacity: int, traj_capacity: int, max_len: int, L: int,
+               H: int, A: int, device) -> "ScanState":
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        i64 = torch.int64
+        return ScanState(
+            pc=PointBuffer.create(pc_capacity, device),
+            traj=TrajectoryBuffer.create(traj_capacity, device),
+            cur=z(3, i64), prev=z(3, i64), has_prev=z((), torch.bool),
+            path=z((max_len, 3), i64), path_len=z((), i64),
+            path_record=z((), i64), edge_memo=z((4, L, H), torch.int8),
+            banned=z((L, H), torch.bool), visited_rot=z((L, H, A), torch.bool),
+            pose_i=z((), i64))
+
+
+@dataclasses.dataclass
+class PrePlan:
+    """What ``pre`` hands to ``plan`` and ``post``."""
+
+    cov: torch.Tensor        # f32: the pose's coverage
+    cur_pose5: torch.Tensor  # (5,) f32
+    regen: torch.Tensor      # bool: the plan runs this pose
+
+
+@dataclasses.dataclass
+class PoseDraws:
+    """A pose's random draws, by the roles of draws.py."""
+
+    cov_start: torch.Tensor   # int64
+    cov_stride: torch.Tensor  # int64
+    obs: torch.Tensor         # (H*W,) f32
+    rot: torch.Tensor         # int64
+    rot2: torch.Tensor        # int64
+    move: torch.Tensor        # (n_steps, H*W) f32
+    plan: torch.Tensor        # (max_len, A) f32
+
+
+def scene_arrays_from_assets(assets: SceneAssets, n_pieces: int = 4,
+                             device: DeviceLike = "cuda") -> SceneArrays:
+    """The per-scene device constants; the planner tables are cast once
+    (one K2 launch on the card)."""
+    dev = resolve_device(device)
+    tri_soa = tris_to_soa(torch.from_numpy(assets.tris).to(dev))
+    n_tris = torch.tensor([assets.n_tris], dtype=torch.int32, device=dev)
+    tables = build_scene_tables(tri_soa, n_tris,
+                                torch.from_numpy(assets.pose_origin).to(dev),
+                                assets.pose_l, assets.pose_h)
+    verts_y = assets.tris[:assets.n_tris, :, 1]
+    return SceneArrays(
+        tri_soa=tri_soa, n_tris=n_tris,
+        gt=torch.from_numpy(assets.gt_surface).to(dev),
+        positions=tables.positions, gt_edge_blocked=tables.gt_edge_blocked,
+        y_bins=height_bins(float(verts_y.min()), float(verts_y.max()),
+                           n_pieces, device=dev),
+        azims=torch.from_numpy(np.asarray(assets.azimuths_deg,
+                                          np.float32)).to(dev))
+
+
+class ScanRollout:
+    """The NBP evaluation rollout with its state on the device.
+
+    model: a ``models.unet.NBP`` (folded with ``fold_bn`` by default, as the
+    JAX class folds its variables). draws: a provider of the role draws
+    (default: ``TorchDraws(seed)`` on the device, made anew by each
+    ``run``); a provider given here is used as it is by every run.
+    device: "cuda" unless the caller asks for the CPU; raises if CUDA is
+    asked for and absent."""
+
+    def __init__(self, assets: SceneAssets, model: NBP,
+                 params: Optional[Params] = None, max_plan_retries: int = 4,
+                 fold_bn: bool = True, draws=None,
+                 device: DeviceLike = "cuda"):
+        self.device = dev = resolve_device(device)
+        self.params = p = params or default_params()
+        for opt in ("stratified_sampling", "batched_capture"):
+            if p.get(opt, False):
+                raise NotImplementedError(f"{opt} is not ported yet")
+        self.assets = assets
+        self.max_plan_retries = int(max_plan_retries)
+        self.model = (fold_bn_model(model) if fold_bn else model).to(dev).eval()
+        self.draws = draws
+        # On the card a pose replays captured graphs; clearing this runs
+        # the same steps eagerly (the checks of the capture and the
+        # profiler's stage split do).
+        self._use_graphs = dev.type == "cuda"
+        self.intr = CameraIntrinsics(
+            image_height=int(p.image_height), image_width=int(p.image_width),
+            fov_degrees=float(p.fov_degrees), znear=float(p.camera_znear),
+            zfar=float(p.zfar))
+        self.scene = scene_arrays_from_assets(
+            assets, n_pieces=int(p.n_pieces), device=dev)
+        self.L, self.H, self.A = assets.pose_l, assets.pose_h, assets.n_azim
+        self._elev = torch.full((1,), float(assets.elevations_deg[2]),
+                                dtype=torch.float32, device=dev)
+        self.n_px = self.intr.image_height * self.intr.image_width
+        self.n_steps = int(p.n_interpolation_steps)
+        self.max_len = int(p.max_path_len)
+        self.state: Optional[ScanState] = None
+        self._pose_cap = 0
+        self._graphs: Dict[str, torch.cuda.CUDAGraph] = {}
+        self.graph_launches: Dict[str, Dict[str, int]] = {}
+        # The last run's regeneration flag a pose, graph replays and host
+        # reads of the flag (the captured pose's only sync).
+        self.regen_poses: List[bool] = []
+        self.replays = {"pre": 0, "plan": 0, "post": 0}
+        self.host_reads = 0
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.pre = PrePlan(cov=z((), torch.float32),
+                           cur_pose5=z(5, torch.float32),
+                           regen=z((), torch.bool))
+        self.pose_draws = PoseDraws(
+            cov_start=z((), torch.int64), cov_stride=z((), torch.int64),
+            obs=z(self.n_px, torch.float32), rot=z((), torch.int64),
+            rot2=z((), torch.int64),
+            move=z((self.n_steps, self.n_px), torch.float32),
+            plan=z((self.max_len, self.A), torch.float32))
+        if dev.type == "cuda":
+            self._regen_host = torch.zeros(1, dtype=torch.bool).pin_memory()
+            self._regen_read = torch.cuda.Event()
+
+    # -- helpers -------------------------------------------------------------
+
+    def _capture_kw(self):
+        p = self.params
+        return dict(n_slots=int(p.points_per_frame),
+                    gathering_factor=float(p.gathering_factor),
+                    sensor_range=float(p.sensor_range))
+
+    def _pose5(self, idx3: torch.Tensor) -> torch.Tensor:
+        pos = _at(self.scene.positions, idx3[0], idx3[1])
+        azim = self.scene.azims.index_select(0, idx3[2].reshape(1))
+        return torch.cat([pos, self._elev, azim])
+
+    def _ensure_capacity(self, n_poses: int) -> None:
+        """Static state for n_poses; a larger rollout than the buffers hold
+        reallocates them and drops the graphs captured over the old ones."""
+        if self.state is not None and n_poses <= self._pose_cap:
+            return
+        cap = max(int(n_poses), MIN_POSE_CAPACITY)
+        self.state = ScanState.create(
+            int(self.params.full_pc_capacity), 8 * (cap + 4), self.max_len,
+            self.L, self.H, self.A, self.device)
+        self.cov_curve = torch.zeros(cap, dtype=torch.float32,
+                                     device=self.device)
+        self._pose_cap = cap
+        self._graphs = {}
+
+    def _init_state(self, draws) -> None:
+        """The initial state in place: empty buffers, the start pose, and the
+        initial captures (a full interpolation from the start to itself)."""
+        s = self.state
+        for t in (s.pc._storage, s.pc.count, s.traj.xyz, s.traj.count,
+                  s.has_prev, s.path, s.path_len, s.path_record, s.edge_memo,
+                  s.banned, s.visited_rot, s.pose_i, self.cov_curve):
+            t.zero_()
+        start = self.assets.start_cam_idx
+        s.cur.copy_(torch.tensor([int(start[0]), int(start[2]),
+                                  int(start[4])], dtype=torch.int64))
+        s.prev.copy_(s.cur)
+        self._visit(s.cur)
+        pose0 = self._pose5(s.cur)
+        frames = torch.stack([draws.uniform("init", (self.n_px,), step=k)
+                              for k in range(1, self.n_steps + 1)])
+        move_and_capture(self.scene.tri_soa, self.scene.n_tris, pose0, pose0,
+                         s.pc, s.traj, frames.to(self.device), self.intr,
+                         n_steps=self.n_steps, n_azim=self.A,
+                         **self._capture_kw())
+
+    def _visit(self, idx3: torch.Tensor) -> None:
+        flat = (idx3[0] * self.H + idx3[1]) * self.A + idx3[2]
+        self.state.visited_rot.view(-1).index_fill_(0, flat.reshape(1), True)
+
+    def _draw_pose(self, draws) -> None:
+        """The pose's draws into the static buffers (outside any graph)."""
+        d = self.pose_draws
+        draws.begin_pose()
+        c = torch.clamp(self.state.pc.count, min=1)
+        d.cov_start.copy_(draws.randint("cov", 0, c))
+        d.cov_stride.copy_(draws.randint("cov", 1, torch.clamp(c // 2, min=2),
+                                         step=1))
+        d.obs.copy_(draws.uniform("obs", (self.n_px,)))
+        d.rot.copy_(draws.randint("rot", 0, self.A))
+        d.rot2.copy_(draws.randint("rot2", 0, self.A))
+        for k in range(self.n_steps):
+            d.move[k].copy_(draws.uniform("move", (self.n_px,), step=k + 1))
+
+    # -- the step ------------------------------------------------------------
+
+    def _pre_step(self) -> None:
+        """Coverage, the loop-start frame, the regeneration decision and the
+        edge memos (JAX ``_pre``)."""
+        s, d, sc, pre = self.state, self.pose_draws, self.scene, self.pre
+        with record_function("coverage"):
+            cov = coverage_percentage(sc.gt, s.pc.points, s.pc.count,
+                                      d.cov_start, d.cov_stride)
+            self.cov_curve.index_copy_(0, s.pose_i.reshape(1), cov.reshape(1))
+        cur_pose5 = self._pose5(s.cur)
+        with record_function("observe"):
+            observe_current(sc.tri_soa, sc.n_tris, cur_pose5, s.pc, d.obs,
+                            self.intr, **self._capture_kw())
+        P = s.path.shape[0]
+        exhausted = s.path_record >= s.path_len
+        cand = _at(s.path, s.path_record.clamp(0, P - 1))
+        d_idx = _edge_dir_index(s.cur[:2], cand[:2])
+        blocked = _at(sc.gt_edge_blocked, d_idx.clamp(0, 3), s.cur[0],
+                      s.cur[1])
+        collides = ~exhausted & (d_idx >= 0) & blocked
+        regen = (s.pose_i == 0) | exhausted | collides | (d_idx < 0)
+        goal = _at(s.path, (s.path_len - 1).clamp(0, P - 1))
+        memo = _memo_edge(s.edge_memo, s.cur[:2], cand[:2], EDGE_COLLISION,
+                          collides)
+        memo = _memo_edge(memo, s.cur[:2], s.prev[:2], EDGE_PASSABLE,
+                          s.has_prev)
+        cell = torch.arange(self.L * self.H, device=self.device)
+        goal_cell = (cell == goal[0] * self.H + goal[1]).view(self.L, self.H)
+        s.banned.logical_or_(goal_cell & collides)
+        s.edge_memo.copy_(memo)
+        pre.cov.copy_(cov)
+        pre.cur_pose5.copy_(cur_pose5)
+        pre.regen.copy_(regen)
+
+    def _plan_fields(self):
+        """The retry-independent half of the plan: projections, U-Net,
+        layout fusion, scoring, edge blocking (JAX ``_plan_fields``)."""
+        p, s, sc = self.params, self.state, self.scene
+        S = int(p.pc2img_size[0])
+        cam = self.pre.cur_pose5
+        with record_function("projections"):
+            model_input, traj_img, proj, filt = build_plan_projections(
+                s.pc, s.traj, cam, sc.y_bins, n_pieces=int(p.n_pieces),
+                img_size=S)
+        with record_function("unet"):
+            value_map, obstacle_map = self.model(model_input)
+        layout, proj256 = fuse_layout_from_projections(
+            obstacle_map[0, :, :, 0], proj, filt, traj_img)
+        scores = score_candidates_test(
+            sc.positions, cam[:3], value_map[0], proj256, s.banned,
+            value_map_size=int(p.value_map_size[0]), layout_size=S)
+        layout_blocked = layout_edge_blocked(sc.positions, cam[:3], layout,
+                                             self.L, self.H, layout_size=S)
+        return scores, layout_blocked, value_map[0]
+
+    def _plan_attempt(self, scores, layout_blocked, vm0, memo):
+        """One planning attempt against the memo: (memo', path, path_len,
+        done), done when a path was found or nothing is reachable; a
+        first-segment GT collision is memoised and leaves done False (JAX
+        ``_plan_attempt``)."""
+        s, sc, L, H = self.state, self.scene, self.L, self.H
+        cur_lh = s.cur[:2]
+        cam = self.pre.cur_pose5
+        blocked = apply_edge_memo(layout_blocked, memo)
+        dist = bfs_distance_field(blocked, cur_lh, L, H)
+        goal, found = select_goal(scores, dist, L, H)
+        path_arr, plen, _ = extract_path(dist, blocked, goal, L, H,
+                                         max_len=self.max_len)
+        valid = torch.arange(self.max_len, device=self.device) < plen
+        rots = pick_orientations(
+            path_arr, valid, vm0, sc.positions, cam[:3], s.visited_rot,
+            self.pose_draws.plan, n_azim=self.A,
+            value_map_size=int(self.params.value_map_size[0]))
+        first = path_arr[0]
+        d_idx = _edge_dir_index(cur_lh, first)
+        first_collides = ((d_idx >= 0)
+                          & _at(sc.gt_edge_blocked, d_idx.clamp(0, 3),
+                                cur_lh[0], cur_lh[1])
+                          & found & (plen > 0))
+        ok = found & (plen > 0) & ~first_collides
+        new_path = torch.cat([path_arr, rots[:, None]], dim=-1).long()
+        memo2 = _memo_edge(memo, cur_lh, first, EDGE_COLLISION,
+                           first_collides)
+        return (memo2, torch.where(ok, new_path, 0),
+                torch.where(ok, plen.long(), 0), ok | ~found)
+
+    def _plan_step(self) -> None:
+        """The plan (JAX ``_plan``): the attempts run one after another, each
+        masked once an earlier one is done, as the JAX fori_loop's cond."""
+        s = self.state
+        with record_function("plan"):
+            scores, layout_blocked, vm0 = self._plan_fields()
+            memo = s.edge_memo
+            path = torch.zeros_like(s.path)
+            path_len = torch.zeros_like(s.path_len)
+            done = torch.zeros((), dtype=torch.bool, device=self.device)
+            for _ in range(self.max_plan_retries):
+                m2, p2, l2, d2 = self._plan_attempt(scores, layout_blocked,
+                                                    vm0, memo)
+                memo = torch.where(done, memo, m2)
+                path = torch.where(done, path, p2)
+                path_len = torch.where(done, path_len, l2)
+                done = done | d2
+            s.edge_memo.copy_(memo)
+            s.path.copy_(path)
+            s.path_len.copy_(path_len)
+
+    def _post_step(self) -> None:
+        """The move (JAX ``_post``): next index, anti-revisit, the move's
+        frames, the state update."""
+        s, d, sc, pre = self.state, self.pose_draws, self.scene, self.pre
+        P = s.path.shape[0]
+        path_record = torch.where(pre.regen, 0, s.path_record)
+        no_path = s.path_len == 0
+        nxt = torch.where(no_path, torch.stack([s.cur[0], s.cur[1], d.rot]),
+                          _at(s.path, path_record.clamp(0, P - 1)))
+        # A path's waypoints lie on the lattice; the clamps only keep the
+        # gather in range.
+        revisit = _at(s.visited_rot, nxt[0].clamp(0, self.L - 1),
+                      nxt[1].clamp(0, self.H - 1), nxt[2].clamp(0, self.A - 1))
+        nxt = torch.stack([nxt[0], nxt[1],
+                           torch.where(revisit & ~no_path, d.rot2, nxt[2])])
+        with record_function("move"):
+            move_and_capture(sc.tri_soa, sc.n_tris, pre.cur_pose5,
+                             self._pose5(nxt), s.pc, s.traj, d.move, self.intr,
+                             n_steps=self.n_steps, n_azim=self.A,
+                             **self._capture_kw())
+        self._visit(nxt)
+        s.prev.copy_(s.cur)
+        s.cur.copy_(nxt)
+        s.has_prev.fill_(True)
+        s.path_record.copy_(path_record + 1)
+        s.pose_i.add_(1)
+
+    # -- graphs --------------------------------------------------------------
+
+    def _capture(self) -> None:
+        """Warm the three steps up on a side stream (cuDNN picks its
+        algorithms, under the U-Net's f32 setting), then capture each as a
+        graph. The warm-up advances the state, which ``run`` then resets.
+        ``graph_launches`` records the kernel launches of each graph, which
+        every replay adds to ``kernels.LAUNCHES``; a capture launches
+        nothing, so its calls are taken back out."""
+        kernels.build()
+        steps = (("pre", self._pre_step), ("plan", self._plan_step),
+                 ("post", self._post_step))
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _, fn in steps:
+                fn()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        pool = None
+        for name, fn in steps:
+            before = dict(kernels.LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                fn()
+            self.graph_launches[name] = {
+                k: kernels.LAUNCHES[k] - before[k] for k in before}
+            kernels.LAUNCHES.update(before)
+            self._graphs[name] = graph
+            pool = graph.pool()
+        torch.cuda.synchronize(self.device)
+
+    def _step(self, name: str) -> None:
+        """One of the three steps: its graph replayed, or its function run
+        eagerly."""
+        if not self._use_graphs:
+            getattr(self, f"_{name}_step")()
+            return
+        with record_function(name):
+            self._graphs[name].replay()
+        kernels.count_replay(self.graph_launches[name])
+        self.replays[name] += 1
+
+    def _regen_flag(self) -> bool:
+        """The regeneration flag on the host: the pose's one sync, a 1-byte
+        copy into pinned memory."""
+        self._regen_host.copy_(self.pre.regen.reshape(1), non_blocking=True)
+        self._regen_read.record()
+        self._regen_read.synchronize()
+        self.host_reads += 1
+        return bool(self._regen_host[0])
+
+    # -- the rollout ---------------------------------------------------------
+
+    @torch.no_grad()
+    def run(self, n_poses: int = 101, seed: int = 8) -> RolloutResult:
+        """n_poses poses from the scene's start; the draws come from
+        ``TorchDraws(seed)`` unless a provider was given. The clock runs
+        from the first pose, once the set-up has finished on the device, to
+        the read of the coverage curve and the trajectory, after a final
+        sync; state set-up and, on a run that needs them, the graphs'
+        capture come before it."""
+        draws = self.draws if self.draws is not None else TorchDraws(
+            seed, self.device)
+        self._ensure_capacity(n_poses)
+        if self._use_graphs and not self._graphs:
+            self._capture()
+        self._init_state(draws)
+        d = self.pose_draws
+        regen_poses = []
+        self.replays = dict.fromkeys(self.replays, 0)
+        self.host_reads = 0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        for _ in range(n_poses):
+            self._draw_pose(draws)
+            self._step("pre")
+            regen = (self._regen_flag() if self._use_graphs
+                     else bool(self.pre.regen))
+            if regen:
+                d.plan.copy_(draws.uniform("plan", (self.max_len, self.A)))
+                self._step("plan")
+            self._step("post")
+            regen_poses.append(regen)
+        s = self.state
+        coverage = self.cov_curve[:n_poses].cpu().numpy()
+        cam = s.traj.xyz[:int(s.traj.count)].cpu().numpy()
+        n_points = int(s.pc.count)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t1
+        self.regen_poses = regen_poses
+        return RolloutResult(
+            coverage_evolution=[float(c) for c in coverage],
+            auc=compute_auc(coverage), cam_positions=cam, wall_time_s=wall,
+            n_points=n_points, steps_per_sec=n_poses / wall)

@@ -66,8 +66,9 @@ def look_at_rotation(eye: torch.Tensor, at: torch.Tensor,
     """
     eye = eye.to(torch.float32)
     at = at.to(torch.float32)
-    up_t = torch.as_tensor(up, dtype=torch.float32,
-                           device=eye.device).expand(eye.shape)
+    # Filled on the device: no host-to-device copy, which would sync.
+    up_t = torch.stack([torch.full_like(eye[..., 0], float(u)) for u in up],
+                       dim=-1)
     z_axis = _normalize(at - eye, 1e-12)
     x_axis = _normalize(_cross(up_t, z_axis), 1e-5)
     y_axis = _normalize(_cross(z_axis, x_axis), 1e-12)

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launch counts, one per kernel; only a real launch adds to them.
 LAUNCHES: Dict[str, int] = {"ray_hits_pinhole": 0, "ray_hits": 0,
-                            "min_sq_dists": 0}
+                            "min_sq_dists": 0, "bfs_field": 0,
+                            "extract_path": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -48,12 +49,23 @@ _SIGNATURES = {
     "nbp_ray_hits_lanes": [_I, _I],
     "nbp_min_sq_dists": [_P, _I, _P, _I, _P, _P, _P],
     "nbp_min_sq_dists_tiling": [_I, _I, _I, _P],
+    "nbp_bfs_field": [_P, _P, _I, _I, _P, _P],
+    "nbp_extract_path": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "nbp_plan_limits": [_P],
 }
+_NO_RESULT = ("nbp_min_sq_dists_tiling", "nbp_plan_limits")
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_replay(launches: Dict[str, int]) -> None:
+    """Add the launches of one CUDA graph replay: the launches its capture
+    recorded (a capture itself launches nothing)."""
+    for k, n in launches.items():
+        LAUNCHES[k] += n
 
 
 def _sources():
@@ -119,7 +131,7 @@ def build() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = None if name == "nbp_min_sq_dists_tiling" else ctypes.c_int
+        fn.restype = None if name in _NO_RESULT else ctypes.c_int
     BUILD_INFO.update(path=path, compiled=compiled,
                       seconds=time.perf_counter() - t0, log=log)
     _lib = lib
@@ -248,6 +260,67 @@ def min_sq_dists_tiling(n_g: int, n_s: int, device=None) -> Dict[str, int]:
     out = (ctypes.c_int * 3)()
     lib.nbp_min_sq_dists_tiling(int(n_g), int(n_s), _sm_count(device), out)
     return {"points_per_block": out[0], "chunk": out[1], "splits": out[2]}
+
+
+def plan_limits() -> Dict[str, int]:
+    """The planner kernels' limits, as csrc/plan.cu holds them: lattice
+    nodes (the shared-memory distance field) and path slots."""
+    out = (ctypes.c_int * 2)()
+    build().nbp_plan_limits(out)
+    return {"nodes": out[0], "path": out[1]}
+
+
+def _check_lattice(L: int, H: int, max_len: Optional[int] = None) -> None:
+    """Refuses a lattice or a path buffer past the kernels' limits."""
+    lim = plan_limits()
+    if L * H > lim["nodes"]:
+        raise ValueError(f"a {L}x{H} lattice has {L * H} nodes; the planner "
+                         f"kernels hold at most {lim['nodes']} in shared "
+                         f"memory")
+    if max_len is not None and not 0 < max_len <= lim["path"]:
+        raise ValueError(f"max_len must be in [1, {lim['path']}], got "
+                         f"{max_len}")
+
+
+def bfs_field(blocked: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """nbp_bfs_field launch: blocked (4, L, H) bool, start (2,) int64 ->
+    (L, H) int32 unit-cost distances (INF = 2^20 unreachable). Raises
+    ValueError for a lattice past the kernel's limit (``plan_limits``)."""
+    _check(blocked, "blocked", torch.bool, (4, None, None))
+    _check(start, "start", torch.int64, (2,))
+    L, H = blocked.shape[1], blocked.shape[2]
+    _check_lattice(L, H)
+    lib = build()
+    dev = blocked.device
+    dist = torch.empty((L, H), dtype=torch.int32, device=dev)
+    err = lib.nbp_bfs_field(blocked.data_ptr(), start.data_ptr(), L, H,
+                            dist.data_ptr(), _stream(dev))
+    _raise_on(err, "nbp_bfs_field")
+    LAUNCHES["bfs_field"] += 1
+    return dist
+
+
+def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
+                 goal: torch.Tensor, max_len: int):
+    """nbp_extract_path launch: dist (L, H) int32, blocked (4, L, H) bool,
+    goal (2,) int64 -> (path (max_len, 2) int32, meta (2,) int32 holding
+    the path length and whether the goal is reachable). Raises ValueError
+    past the kernel's limits (``plan_limits``)."""
+    _check(dist, "dist", torch.int32, (None, None))
+    L, H = dist.shape
+    _check(blocked, "blocked", torch.bool, (4, L, H))
+    _check(goal, "goal", torch.int64, (2,))
+    _check_lattice(L, H, max_len)
+    lib = build()
+    dev = dist.device
+    path = torch.empty((max_len, 2), dtype=torch.int32, device=dev)
+    meta = torch.empty(2, dtype=torch.int32, device=dev)
+    err = lib.nbp_extract_path(dist.data_ptr(), blocked.data_ptr(),
+                               goal.data_ptr(), L, H, int(max_len),
+                               path.data_ptr(), meta.data_ptr(), _stream(dev))
+    _raise_on(err, "nbp_extract_path")
+    LAUNCHES["extract_path"] += 1
+    return path, meta
 
 
 def device_ms(fn, reps: int, warmup: int = 2) -> float:

@@ -6,6 +6,11 @@ node gives the distance to every node; the path is walked back from the
 goal with neighbour preference in DIRS order (+x, -x, +z, -z), as the
 reference's Dijkstra breaks ties.
 
+The distance field and the path walk take and return tensors on one
+device; on the card they are the kernels ``nbp_bfs_field`` and
+``nbp_extract_path`` (``csrc/plan.cu``), with no host sync, and on the CPU
+their plain versions.
+
 Edge memos: 0 unknown (use the layout test), 1 known passable, 2 known
 collision.
 """
@@ -16,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from .. import kernels
 from ..ops.scatter2d import ego2d, img_coords
 from .bresenham import bresenham_obstacle_count
 
@@ -84,20 +90,26 @@ def apply_edge_memo(layout_blocked: torch.Tensor, edge_memo: torch.Tensor
                                    layout_blocked))
 
 
-_SWEEPS_PER_CHECK = 4  # relaxation sweeps between host-side change tests
+_SWEEPS_PER_CHECK = 4  # relaxation sweeps between change tests
 
 
-def bfs_distance_field(blocked: torch.Tensor, start_lh: Tuple[int, int],
-                       L: int, H: int) -> torch.Tensor:
-    """(L, H) int32 unit-cost distances from start (INF unreachable).
+def _start_mask(start_lh: torch.Tensor, L: int, H: int) -> torch.Tensor:
+    il = torch.arange(L, device=start_lh.device)[:, None]
+    ih = torch.arange(H, device=start_lh.device)[None, :]
+    return (il == start_lh[0]) & (ih == start_lh[1])
 
-    blocked[d, i, j]: edge (i, j) -> (i, j) + DIRS[d] impassable. Relaxation
-    sweeps run to the fixpoint (at most L*H sweeps: a maze path can wind
-    through most of the grid); the change test, a host sync, is taken every
-    few sweeps: sweeps past the fixpoint change nothing."""
+
+def bfs_distance_field_plain(blocked: torch.Tensor, start_lh: torch.Tensor,
+                             L: int, H: int) -> torch.Tensor:
+    """Plain version of ``nbp_bfs_field``: relaxation sweeps run to the
+    fixpoint (at most L*H sweeps: a maze path can wind through most of the
+    grid), the change test taken every few sweeps; sweeps past the
+    fixpoint change nothing. The test reads the tensors on the host, so on
+    CUDA tensors it syncs every few sweeps."""
     dev = blocked.device
-    dist = torch.full((L, H), INF, dtype=torch.int32, device=dev)
-    dist[start_lh[0], start_lh[1]] = 0
+    dist = torch.where(_start_mask(start_lh, L, H),
+                       torch.zeros((L, H), dtype=torch.int32, device=dev),
+                       torch.full((L, H), INF, dtype=torch.int32, device=dev))
     # Incoming edge to (i, j) from (i, j) - DIRS[d] uses blocked[d] at the
     # source; roll wraps, so sources off the grid are masked explicitly.
     bad = torch.stack([
@@ -120,18 +132,29 @@ def bfs_distance_field(blocked: torch.Tensor, start_lh: Tuple[int, int],
     return dist
 
 
-def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
-                 goal_lh: Tuple[int, int], L: int, H: int, max_len: int = 96
-                 ) -> Tuple[torch.Tensor, int, bool]:
-    """Walk from the goal back to the start along decreasing distances.
+def bfs_distance_field(blocked: torch.Tensor, start_lh: torch.Tensor,
+                       L: int, H: int) -> torch.Tensor:
+    """(L, H) int32 unit-cost distances from start_lh ((2,) int64 on the
+    device; INF unreachable). blocked[d, i, j]: edge (i, j) -> (i, j) +
+    DIRS[d] impassable. The kernel ``nbp_bfs_field`` on CUDA tensors (no
+    sync), its plain version on CPU tensors."""
+    start_lh = torch.as_tensor(start_lh, device=blocked.device)
+    if blocked.device.type == "cpu":
+        return bfs_distance_field_plain(blocked, start_lh, L, H)
+    return kernels.bfs_field(blocked.contiguous(),
+                             start_lh.to(torch.int64).contiguous())
 
-    Returns (path (max_len, 2) int32 start->goal without the start node, -1
-    past the length; path_len; reachable). When the goal is further than
-    max_len the max_len nodes nearest the START are kept, so path[0] is
-    always adjacent to the start. A scalar walk on the host."""
+
+def extract_path_plain(dist: torch.Tensor, blocked: torch.Tensor,
+                       goal_lh: torch.Tensor, L: int, H: int,
+                       max_len: int = 96):
+    """Plain version of ``nbp_extract_path``: the walk back from the goal
+    as a scalar loop on the host (it reads the inputs to the host, so on
+    CUDA tensors it syncs); the outputs on the inputs' device."""
     d_np = dist.cpu().numpy()
     b_np = blocked.cpu().numpy()
-    gl, gh = int(goal_lh[0]), int(goal_lh[1])
+    gl = min(max(int(goal_lh[0]), 0), L - 1)
+    gh = min(max(int(goal_lh[1]), 0), H - 1)
     goal_dist = int(d_np[gl, gh])
     reachable = goal_dist < INF
     path_len = min(goal_dist, max_len)
@@ -155,8 +178,30 @@ def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
     gd = goal_dist if reachable else 1
     path = [rev[(gd - 1 - j) % max_len] if j < path_len else [-1, -1]
             for j in range(max_len)]
-    return (torch.tensor(path, dtype=torch.int32, device=dist.device),
-            path_len, reachable)
+    dev = dist.device
+    return (torch.tensor(path, dtype=torch.int32, device=dev),
+            torch.tensor(path_len, dtype=torch.int32, device=dev),
+            torch.tensor(reachable, device=dev))
+
+
+def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
+                 goal_lh: torch.Tensor, L: int, H: int, max_len: int = 96):
+    """Walk from the goal back to the start along decreasing distances,
+    preferring predecessors in DIRS order.
+
+    Returns (path (max_len, 2) int32 start->goal without the start node, -1
+    past the length; path_len 0-d int32; reachable 0-d bool), on the
+    inputs' device. When the goal is further than max_len the max_len nodes
+    nearest the START are kept (a circular buffer of max_len nodes), so
+    path[0] is always adjacent to the start. The kernel ``nbp_extract_path``
+    on CUDA tensors (no sync), its plain version on CPU tensors."""
+    goal_lh = torch.as_tensor(goal_lh, device=dist.device)
+    if dist.device.type == "cpu":
+        return extract_path_plain(dist, blocked, goal_lh, L, H, max_len)
+    path, meta = kernels.extract_path(dist.contiguous(), blocked.contiguous(),
+                                      goal_lh.to(torch.int64).contiguous(),
+                                      max_len)
+    return path, meta[0], meta[1] != 0
 
 
 def pick_orientations(path: torch.Tensor, path_valid: torch.Tensor,

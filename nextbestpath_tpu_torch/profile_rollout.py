@@ -1,19 +1,36 @@
-"""Where a pose's time goes: the planning rollout under ``torch.profiler``.
+"""Where a pose's time goes: a planning rollout under ``torch.profiler``.
 
-    python3 -m nextbestpath_tpu_torch.profile_rollout [--poses 4]
+    python3 -m nextbestpath_tpu_torch.profile_rollout [--poses 6]
+        [--rollout host|scan]
 
 Runs the main path that ``chip_smoke.py`` drives
 (``eval.nbp_planning.main_path_setup``: procgen ``simple`` seed 8, default
 config, full-width NBP in f32 with seeded weights and the obstacle decoder
-opened), warms up as the smoke does, then profiles ``--poses`` poses on the
-card. Prints the wall time per pose, the device's busy share
-(the union of kernel intervals over the wall time) and the operations
-with the most device time. Needs a CUDA card.
+opened) through the host rollout (``NBPPlanningRollout``) or the scan
+rollout (``ScanRollout``), warms up as the smoke does, then profiles
+``--poses`` poses on the card: the scan twice, its pose replayed as CUDA
+graphs and then the same steps run eagerly, whose stage ranges split the
+graphs' device time by stage. Prints, a run:
+
+* the wall time a pose under the profiler and, from a run of the same
+  poses just before it, without; the device's busy time (the union of the
+  device activities' intervals, the stage annotations left out) and its
+  share of both walls;
+* each stage's range (``record_function``: coverage, observe, projections,
+  unet, plan, move in the eager steps; pre, plan, post around graph
+  replays): its host time, and the device time of the activities that
+  start inside the range's extent on the device (the profiler's user
+  annotation), a pose;
+* the host time blocked in syncs (stream, device and event synchronizes,
+  and blocking copies), against the wall: the rest of the host's time is
+  dispatch;
+* the operations with the most device time. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import time
 
 import torch
@@ -21,14 +38,38 @@ from torch.profiler import ProfilerActivity, profile
 
 from .eval.nbp_planning import (MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES,
                                 NBPPlanningRollout, main_path_setup)
+from .eval.scan_rollout import ScanRollout
+
+STAGES = ("coverage", "observe", "projections", "unet", "plan", "move", "pre",
+          "post")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
 
 
-def _busy_us(events) -> float:
-    """Length of the union of the device kernels' intervals, in us."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+def _is_annotation(e) -> bool:
+    return e.name in STAGES or bool(getattr(e, "is_user_annotation", False))
+
+
+def _device_spans(events):
+    """(kernel spans, stage spans) on the device timeline, in us: the
+    device's activities, and the device-side extent of each stage range
+    (the profiler's user annotations)."""
+    kernels, stages = [], collections.defaultdict(list)
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if _is_annotation(e):
+            stages[e.name].append(span)
+        else:
+            kernels.append(span)
+    return sorted(kernels), stages
+
+
+def _union_us(spans) -> float:
+    """Length of the union of the intervals, in us."""
     total, end = 0.0, float("-inf")
-    for s, e in spans:
+    for s, e in sorted(spans):
         if s > end:
             total += e - s
             end = e
@@ -38,29 +79,91 @@ def _busy_us(events) -> float:
     return total
 
 
+def _stage_device_us(kernels, spans) -> float:
+    """Device time of the activities that start inside the stage's spans
+    (nested stages count in each: ``plan`` holds ``projections`` and
+    ``unet``)."""
+    return sum(_union_us([k for k in kernels if s <= k[0] < e])
+               for s, e in spans)
+
+
+def _runs(kind: str):
+    """(label, run(n_poses)) pairs to profile, each warmed up."""
+    params, assets, model = main_path_setup()
+    dev = torch.device("cuda")
+    if kind == "host":
+        def make():
+            return NBPPlanningRollout(assets, model, params=params,
+                                      seed=MAIN_PATH_SEED, device=dev)
+        make().run(n_poses=MAIN_PATH_WARMUP_POSES)
+        roll = make()
+        return [("host", lambda n: roll.run(n_poses=n))]
+    scan = ScanRollout(assets, model, params=params, device=dev)
+    # Each mode warms up on its own: the capture, and the eager steps'
+    # allocations outside the graphs' memory pool.
+    for graphs in (True, False):
+        scan._use_graphs = graphs
+        scan.run(n_poses=MAIN_PATH_WARMUP_POSES, seed=MAIN_PATH_SEED)
+
+    def run(graphs):
+        def go(n):
+            scan._use_graphs = graphs
+            return scan.run(n_poses=n, seed=MAIN_PATH_SEED)
+        return go
+    return [("scan graphs", run(True)), ("scan eager", run(False))]
+
+
+def _profile(label: str, run, n: int) -> None:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(n)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run(n)
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels, stage_spans = _device_spans(events)
+    busy = _union_us(kernels) / 1e6
+    print(f"{label} rollout, profiled {n} poses: {wall / n * 1e3:.2f} ms/pose "
+          f"(under the profiler), device busy {busy / n * 1e3:.3f} ms/pose, "
+          f"{busy / wall:.3f} of the wall; the same run without the profiler "
+          f"{plain_wall / n * 1e3:.2f} ms/pose, of which the device busy time is "
+          f"{busy / plain_wall:.3f}; coverage {res.coverage_evolution}")
+    host = collections.defaultdict(lambda: [0, 0.0])
+    syncs = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        table = host if e.name in STAGES else syncs if e.name in SYNC_CALLS else None
+        if table is not None:
+            table[e.name][0] += 1
+            table[e.name][1] += e.cpu_time_total
+    for name in STAGES:
+        if name in host:
+            k, host_us = host[name]
+            dev_us = _stage_device_us(kernels, stage_spans.get(name, []))
+            print(f"  stage {name}: {k / n:.2f} a pose, host {host_us / n / 1e3:.3f} "
+                  f"ms/pose, device {dev_us / n / 1e3:.3f} ms/pose")
+    blocked = sum(v[1] for v in syncs.values()) / 1e6
+    print(f"  host blocked in syncs {blocked / n * 1e3:.3f} ms/pose "
+          f"({blocked / wall:.3f} of the wall; "
+          + ", ".join(f"{k} {v[0] / n:.1f} a pose" for k, v in syncs.items())
+          + f"); device idle {1 - busy / wall:.3f} of the wall")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=25))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--poses", type=int, default=4)
+    ap.add_argument("--poses", type=int, default=6)
+    ap.add_argument("--rollout", choices=("host", "scan"), default="host")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
-    dev = torch.device("cuda")
-    params, assets, model = main_path_setup()
-    NBPPlanningRollout(assets, model, params=params, seed=MAIN_PATH_SEED,
-                       device=dev).run(n_poses=MAIN_PATH_WARMUP_POSES)
-    roll = NBPPlanningRollout(assets, model, params=params, seed=MAIN_PATH_SEED,
-                              device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = roll.run(n_poses=args.poses)
-        wall = time.perf_counter() - t0
-    busy = _busy_us(prof.events()) / 1e6
-    print(f"profiled {args.poses} poses: {wall / args.poses * 1e3:.2f} ms/pose "
-          f"(under the profiler), device busy {busy / wall:.3f} of the wall, "
-          f"coverage {res.coverage_evolution}")
-    print(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                    row_limit=25))
+    for label, run in _runs(args.rollout):
+        _profile(label, run, args.poses)
 
 
 if __name__ == "__main__":

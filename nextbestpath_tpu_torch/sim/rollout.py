@@ -24,7 +24,9 @@ from .sensor import (PointBuffer, backproject_sample, capture_depth,
 
 class TrajectoryBuffer:
     """Fixed-capacity history of interpolated camera positions; mutable,
-    written in place. Appends past capacity overwrite the last slot."""
+    written in place, its count included (a CUDA graph replays its appends
+    into the same storage). Appends past capacity overwrite the last
+    slot."""
 
     def __init__(self, capacity: int, device):
         self.xyz = torch.zeros((capacity, 3), dtype=torch.float32,
@@ -39,7 +41,7 @@ class TrajectoryBuffer:
         cap = self.xyz.shape[0]
         slot = torch.clamp(self.count, max=cap - 1).long()
         self.xyz.index_copy_(0, slot.reshape(1), pos.reshape(1, 3))
-        self.count = torch.clamp(self.count + 1, max=cap)
+        self.count.copy_(torch.clamp(self.count + 1, max=cap))
         return self
 
     def valid_mask(self) -> torch.Tensor:
@@ -52,8 +54,8 @@ def interpolate_pose(old_pose5: torch.Tensor, new_pose5: torch.Tensor,
     """Linear pose interpolation with azimuth wraparound: between azimuth
     indices 0 and n_azim-1 the intermediate steps go the short way round
     (offset +-360); the final step lands exactly on the new pose."""
-    frac = torch.tensor(float(step), dtype=torch.float32,
-                        device=old_pose5.device) / n_steps
+    frac = torch.full((), float(step), dtype=torch.float32,
+                      device=old_pose5.device) / n_steps
     pose = old_pose5 + (new_pose5 - old_pose5) * frac
     azim_step = 360.0 / n_azim
     old_a = old_pose5[4]

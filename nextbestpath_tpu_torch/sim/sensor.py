@@ -80,7 +80,9 @@ class PointBuffer:
     Mutable, unlike the JAX NamedTuple: ``append`` writes in place into a
     preallocated buffer, which saves a 24 MB copy per frame at the 2M
     default capacity. The storage has one scratch row past ``capacity`` that
-    takes the rows an append drops. ``count`` stays a device tensor."""
+    takes the rows an append drops. ``count`` stays a device tensor and is
+    updated in place, so a CUDA graph replays appends into the same
+    storage."""
 
     def __init__(self, capacity: int, device):
         self._storage = torch.zeros((capacity + 1, 3), dtype=torch.float32,
@@ -118,5 +120,5 @@ class PointBuffer:
         self._storage.index_copy_(0, slots.long(),
                                   batch.points.to(torch.float32))
         n_new = batch.valid.sum().to(torch.int32)
-        self.count = torch.clamp(self.count + n_new, max=cap)
+        self.count.copy_(torch.clamp(self.count + n_new, max=cap))
         return self

@@ -19,6 +19,7 @@ import torch
 from nextbestpath_tpu_torch import kernels
 from nextbestpath_tpu_torch.ops import coverage as C
 from nextbestpath_tpu_torch.ops import raytrace as R
+from nextbestpath_tpu_torch.planning import grid_paths as G
 
 
 def _need_card():
@@ -40,7 +41,7 @@ def test_library_path_is_hashed_under_build_dir():
     assert os.path.basename(path).startswith("libnbp_kernels_")
     assert path.endswith(".so") and path == kernels.library_path()
     names = sorted(os.path.basename(p) for p in kernels._sources())
-    assert names == ["common.cuh", "coverage.cu", "raytrace.cu"]
+    assert names == ["common.cuh", "coverage.cu", "plan.cu", "raytrace.cu"]
 
 
 def test_find_nvcc_raises_when_absent(monkeypatch):
@@ -86,8 +87,12 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     R.ray_hits_full(o, d, soa, 50)
     R.ray_hits_pinhole(o[0], d, soa, 50)
     C.min_dists(o, d, torch.ones(64, dtype=torch.bool))
+    blocked = torch.zeros((4, 5, 6), dtype=torch.bool)
+    dist = G.bfs_distance_field(blocked, torch.tensor([1, 2]), 5, 6)
+    G.extract_path(dist, blocked, torch.tensor([4, 5]), 5, 6, max_len=8)
     assert kernels.LAUNCHES == {"ray_hits_pinhole": 0, "ray_hits": 0,
-                                "min_sq_dists": 0}
+                                "min_sq_dists": 0, "bfs_field": 0,
+                                "extract_path": 0}
 
 
 @pytest.mark.cuda
@@ -315,3 +320,158 @@ def test_launchers_check_dtype_and_shape_on_card():
         kernels.ray_hits_pinhole(x[None], torch.zeros(2, 10, 4, device="cuda"), 4, 0.0, 1.0)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.ray_hits(x, torch.zeros(3, 4, device="cuda").T, torch.zeros(9, 4, device="cuda"), 4, 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# The planner kernels (csrc/plan.cu) and the captured scan rollout
+# ---------------------------------------------------------------------------
+
+
+def _lattice(case, L, H, seed=0):
+    """(4, L, H) bool edge-blocked masks: an open grid, a serpentine maze
+    (one opening a row, alternating ends), random blocks, or a walled
+    start (nothing reachable)."""
+    blocked = np.zeros((4, L, H), bool)
+    if case == "maze":
+        for j in range(H - 1):
+            open_row = (L - 1) if j % 2 == 0 else 0
+            for i in range(L):
+                if i != open_row:
+                    blocked[2, i, j] = True
+                    blocked[3, i, j + 1] = True
+    elif case == "random":
+        blocked = np.random.default_rng(seed).random((4, L, H)) < 0.3
+    elif case == "walled":
+        blocked[:] = True
+    return torch.from_numpy(blocked)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (65, 64), (4097, 1)])
+def test_plan_launchers_refuse_large_lattices(shape):
+    """On CPU tensors the planner launchers refuse every lattice, the large
+    ones included, before they build or read the kernels' limits: a CPU
+    tensor is the plain version's (planning/grid_paths.py), never the
+    launcher's. The limits themselves, which csrc/plan.cu holds, are held
+    on the card (test_plan_kernels_refuse_large_lattice_on_card)."""
+    L, H = shape
+    blocked = torch.zeros((4, L, H), dtype=torch.bool)
+    start = torch.zeros(2, dtype=torch.int64)
+    dist = torch.zeros((L, H), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.bfs_field(blocked, start)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.extract_path(dist, blocked, start, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["open", "maze", "random", "walled"])
+@pytest.mark.parametrize("shape", [(10, 10), (17, 17), (58, 58), (64, 64),
+                                   (3, 41)])
+def test_plan_kernels_equal_plain_versions_on_card(case, shape):
+    """nbp_bfs_field and nbp_extract_path against their plain versions:
+    the field for two starts, and the path to a near goal, the far corner
+    (past max_len in the maze), an unreachable goal (walled) and the start
+    itself, at max_len 8 and 96. Both are integer-exact."""
+    _need_card()
+    from nextbestpath_tpu_torch.planning import grid_paths as G
+
+    L, H = shape
+    blocked = _lattice(case, L, H, seed=L * H)
+    kernels.reset_launch_counts()
+    runs = 0
+    for start in ((0, 0), (L // 2, H // 3)):
+        s = torch.tensor(start, dtype=torch.int64)
+        want = G.bfs_distance_field_plain(blocked, s, L, H)
+        got = G.bfs_distance_field(blocked.cuda(), s.cuda(), L, H)
+        assert torch.equal(got.cpu(), want), (case, shape, start)
+        runs += 1
+        for goal in ((min(2, L - 1), min(1, H - 1)), (L - 1, H - 1), start):
+            g = torch.tensor(goal, dtype=torch.int64)
+            for max_len in (8, 96):
+                pw, lw, rw = G.extract_path_plain(want, blocked, g, L, H,
+                                                  max_len)
+                pk, lk, rk = G.extract_path(got, blocked.cuda(), g.cuda(), L,
+                                            H, max_len)
+                assert torch.equal(pk.cpu(), pw), (case, shape, start, goal)
+                assert int(lk) == int(lw) and bool(rk) == bool(rw)
+                runs += 1
+    assert kernels.LAUNCHES["bfs_field"] == 2
+    assert kernels.LAUNCHES["extract_path"] == runs - 2
+
+
+@pytest.mark.cuda
+def test_plan_kernels_refuse_large_lattice_on_card():
+    """The limits that csrc/plan.cu holds, read through nbp_plan_limits: a
+    lattice past 4096 nodes or a path buffer outside [1, 1024] is refused
+    with the limit named, and never handed to the plain version."""
+    _need_card()
+    from nextbestpath_tpu_torch.planning import grid_paths as G
+
+    assert kernels.plan_limits() == {"nodes": 4096, "path": 1024}
+    start = torch.zeros(2, dtype=torch.int64, device="cuda")
+    for L, H in ((65, 64), (4097, 1)):
+        blocked = torch.zeros((4, L, H), dtype=torch.bool, device="cuda")
+        dist = torch.zeros((L, H), dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="at most 4096"):
+            G.bfs_distance_field(blocked, start, L, H)
+        with pytest.raises(ValueError, match="at most 4096"):
+            G.extract_path(dist, blocked, start, L, H, max_len=8)
+    blocked = torch.zeros((4, 8, 8), dtype=torch.bool, device="cuda")
+    dist = torch.zeros((8, 8), dtype=torch.int32, device="cuda")
+    for max_len in (0, 1025):
+        with pytest.raises(ValueError, match=r"\[1, 1024\]"):
+            kernels.extract_path(dist, blocked, start, max_len)
+
+
+def _small_scan(device, graphs=True):
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
+    from nextbestpath_tpu_torch.eval.scan_rollout import ScanRollout
+
+    p = default_params(image_height=32, image_width=56, points_per_frame=256,
+                       full_pc_capacity=65536, n_gt_surface_points=2048,
+                       max_path_len=32, pc2img_size=[64, 64],
+                       value_map_size=[16, 16])
+    a = pack_generated_scene(generate_scene("normal", seed=3), params=p)
+    dev = torch.device(device)
+    roll = ScanRollout(a, seeded_nbp(), params=p, device=dev,
+                       draws=TorchDraws(8, dev, "cpu"))
+    roll._use_graphs = graphs and dev.type == "cuda"
+    return roll
+
+
+@pytest.mark.cuda
+def test_scan_rollout_captures_its_step_on_card():
+    """The scan rollout's step captured as CUDA graphs (a capture fails on
+    any host sync left in the step) equals the same step run eagerly on
+    the card, bit for bit, and the CPU's within 1e-3 with the same
+    trajectory; each pose launches K1 twice and K3 once, and the planner
+    kernels max_plan_retries times each on regeneration poses only."""
+    _need_card()
+    n = 8
+    runs = {}
+    for label, dev, graphs in (("graphs", "cuda", True),
+                               ("eager", "cuda", False), ("cpu", "cpu", False)):
+        roll = _small_scan(dev, graphs)
+        roll.run(n_poses=2)
+        kernels.reset_launch_counts()
+        res = roll.run(n_poses=n)
+        runs[label] = (res, dict(kernels.LAUNCHES), list(roll.regen_poses),
+                       roll.state.pc.points[:res.n_points].cpu())
+    (g, lg, rg, pg), (e, le, re_, pe), (c, _, rc, _) = (
+        runs["graphs"], runs["eager"], runs["cpu"])
+    assert g.coverage_evolution == e.coverage_evolution
+    assert np.array_equal(g.cam_positions, e.cam_positions)
+    assert g.n_points == e.n_points and torch.equal(pg, pe)
+    assert rg == re_ == rc and rg[0] and not all(rg)
+    assert lg == le
+    k = sum(rg)
+    assert lg == {"ray_hits_pinhole": 1 + 2 * n, "ray_hits": 0,
+                  "min_sq_dists": n, "bfs_field": 4 * k, "extract_path": 4 * k}
+    np.testing.assert_allclose(g.coverage_evolution, c.coverage_evolution,
+                               atol=1e-3)
+    np.testing.assert_allclose(g.cam_positions, c.cam_positions, atol=1e-4)
+    assert g.n_points == c.n_points

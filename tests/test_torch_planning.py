@@ -187,7 +187,9 @@ def test_score_candidates_and_select_goal_match(scene):
                                  jnp.asarray([4, 4]), L, H)
     gj, fj = JE.select_goal(want, dist, L, H)
     gt_, ft = TE.select_goal(got, _t(dist), L, H)
-    assert tuple(int(v) for v in np.asarray(gj)) == gt_ and bool(fj) == ft
+    _eq(gt_, gj)
+    assert gt_.dtype == torch.int64 and ft.dtype == torch.bool
+    assert bool(fj) == bool(ft)
 
 
 def _buffers(seed=9, n=3000, cap=4096):

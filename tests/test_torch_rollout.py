@@ -257,8 +257,9 @@ def test_cuda_requested_without_card_raises():
 
 
 def test_port_imports_nothing_of_jax():
-    """Import the port and render a tiny frame with jax, flax and the JAX
-    package blocked from import."""
+    """Import the port (the scan rollout, BN folding, the planner, the
+    profiler and bench_torch.py among it) and render a tiny frame with jax,
+    flax and the JAX package blocked from import."""
     code = r"""
 import sys
 class Block:
@@ -274,6 +275,12 @@ from nextbestpath_tpu_torch import kernels
 from nextbestpath_tpu_torch.ops.raytrace import render_depth, tris_to_soa
 from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics, get_camera_RT
 from nextbestpath_tpu_torch.assets import generate_scene, pack_generated_scene
+from nextbestpath_tpu_torch.eval import scan_rollout
+from nextbestpath_tpu_torch.models import fold
+from nextbestpath_tpu_torch.planning import grid_paths
+from nextbestpath_tpu_torch.ops import scatter2d
+from nextbestpath_tpu_torch import profile_rollout
+import bench_torch
 a = pack_generated_scene(generate_scene("simple", seed=1))
 R, T = get_camera_RT(torch.tensor([[7.5, 3.3, 7.5]]), torch.tensor([[0.0, 0.0]]))
 z = render_depth(tris_to_soa(torch.from_numpy(a.tris)), a.n_tris, R[0], T[0],
