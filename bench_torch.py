@@ -3,21 +3,27 @@
 
     python3 bench_torch.py [--poses 30] [--warmup-poses 3]
         [--difficulty simple] [--seed 8] [--quick] [--device cuda]
+        [--dtype float32|bfloat16] [--stratified] [--batched-capture]
 
 The single-scene path of ``bench.py`` over the port's device-resident
 rollout (``nextbestpath_tpu_torch/eval/scan_rollout.py::ScanRollout``, a
 pose replayed as CUDA graphs): the procgen scene of ``--difficulty`` and
 ``--seed`` under ``default_params()`` (``--quick``: 64x114 frames, 1024
 points a frame, 262,144 point capacity, 4096 GT points, at most 10 poses,
-as ``bench.py --quick``), and the full-width f32 NBP with seeded random
+as ``bench.py --quick``), and the full-width NBP with seeded random
 weights and its obstacle decoder opened (``seeded_nbp``, ``bench.py``'s
-branch without a checkpoint). One warm-up rollout of ``--warmup-poses``
-poses (it captures the graphs), then 5 measured rollouts of ``--poses``
-poses at ``seed + 1``. Prints ONE JSON line:
+branch without a checkpoint), computing in ``--dtype`` (default f32;
+``bench.py`` runs bf16). ``--stratified`` and ``--batched-capture`` select
+the scan's capture options, as ``bench.py``'s flags of those names; the
+defaults (f32, the iid draw, a substep's append at a time) are the
+configuration this benchmark has always measured. One warm-up rollout of
+``--warmup-poses`` poses (it captures the graphs), then 5 measured
+rollouts of ``--poses`` poses at ``seed + 1``. Prints ONE JSON line:
 
     {"metric": "env_steps_per_sec", "value": <median of 5>, "unit":
      "poses/s", "vs_baseline": value / 0.5, "min", "max", "runs": 5,
-     "device": "<name, power limit>", "coverage_final", "auc"}
+     "device": "<name, power limit>", "coverage_final", "auc", "dtype",
+     "stratified", "batched_capture"}
 
 ``vs_baseline`` divides by ``bench.py``'s provisional reference rate. Runs
 on the card unless ``--device cpu``; exits 2 when the card is asked for and
@@ -59,6 +65,12 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="small camera, small buffers, at most 10 poses")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    ap.add_argument("--stratified", action="store_true",
+                    help="the stratified pixel draw in every frame")
+    ap.add_argument("--batched-capture", action="store_true",
+                    help="a move's frames appended with one scatter")
     args = ap.parse_args(argv)
 
     import torch
@@ -83,9 +95,12 @@ def main(argv=None) -> int:
     else:
         params = default_params()
         poses = args.poses
+    params.update(stratified_sampling=args.stratified,
+                  batched_capture=args.batched_capture)
     assets = pack_generated_scene(
         generate_scene(args.difficulty, seed=args.seed), params=params)
-    rollout = ScanRollout(assets, seeded_nbp(), params=params, device=device)
+    rollout = ScanRollout(assets, seeded_nbp(dtype=getattr(torch, args.dtype)),
+                          params=params, device=device)
     rollout.run(n_poses=args.warmup_poses, seed=args.seed)
     results, regens = [], []
     for _ in range(RUNS):
@@ -98,7 +113,9 @@ def main(argv=None) -> int:
         "metric": "env_steps_per_sec", "value": value, "unit": "poses/s",
         "vs_baseline": value / REFERENCE_POSES_PER_SEC, "min": min(rates),
         "max": max(rates), "runs": RUNS, "device": device_label(device),
-        "coverage_final": res.coverage_evolution[-1], "auc": res.auc}))
+        "coverage_final": res.coverage_evolution[-1], "auc": res.auc,
+        "dtype": args.dtype, "stratified": rollout.stratified,
+        "batched_capture": rollout.batched_capture}))
     print(f"# {args.difficulty}/{args.seed}, {poses} poses a run, rates "
           f"{rates}, regeneration poses a run {regens}, points "
           f"{res.n_points}", file=sys.stderr)

@@ -38,7 +38,24 @@ Phases, each of which raises on failure (exit code != 0):
    each on regeneration poses only, which alone replay the U-Net; coverage
    must rise. Then a small scan rollout captured against the same rollout
    run eagerly on the card (bit for bit) and on the CPU (within 1e-3, the
-   same trajectory).
+   same trajectory);
+7. the evaluation CLI's path (``eval.nbp_planning.test_nbp_planning``,
+   what ``test_nbp_planning_torch.py`` runs) over two held-out scenes
+   (``eval.heldout``: simple and normal, scene 0) at full width, 6 poses
+   each, in the legacy mode (sequential draws, the argsort sampler of the
+   metric) with the bf16 U-Net (seeded weights, ``final2`` bias -4), counts
+   set to 0 just before and read just after: K2 once a scene, K1 1 + 2 a
+   pose, K3 once a pose, coverage rising in each scene. Then a checkpoint
+   round trip of the full-width NBP (the port's writer and reader: the
+   state_dict and the bf16 forward equal bit for bit); the bf16 forward
+   against the f32 one of the same weights at 256x256x5 (within 0.05 on
+   both maps) with the U-Net's device time in f32 and bf16, folded and
+   not; the legacy host rollout's ms a pose on the main path in f32 and
+   bf16; the scan rollout with the stratified draw and the batched capture
+   at phase 5's small config (captured equal to eager bit for bit, eager
+   within 1e-3 of the CPU); and the random-walk baseline at full width for
+   6 poses, counts set to 0 just before it (K2 once, K1 1 + 1 a pose, K3
+   once a pose).
 
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
@@ -288,6 +305,181 @@ def time_k2_against(tree, cases, plain):
                                   tris=c["nt"], ms=kernels.device_ms(run, 50))), flush=True)
 
 
+def small_scan_check(label, s_assets, small):
+    """The scan rollout at the small config ``small`` for 8 poses, with one
+    CPU generator's draws: captured as graphs it must equal the same step
+    run eagerly on the card bit for bit, and the eager run the CPU's within
+    TOL_COVERAGE with the same trajectory."""
+    import torch
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
+    from nextbestpath_tpu_torch.eval.scan_rollout import ScanRollout
+
+    runs = {}
+    for run, d, graphs in (("graphs", "cuda", True), ("eager", "cuda", False),
+                           ("cpu", "cpu", False)):
+        r = ScanRollout(s_assets, seeded_nbp(), params=small, device=d,
+                        draws=TorchDraws(8, torch.device(d), "cpu"))
+        r._use_graphs = graphs
+        out = r.run(n_poses=8)
+        runs[run] = (out, r.regen_poses, r.state.pc.points[:out.n_points].cpu())
+    (g, g_regen, g_pts), (e, e_regen, e_pts), (c, c_regen, _) = (
+        runs[k] for k in ("graphs", "eager", "cpu"))
+    bitwise = (g.coverage_evolution == e.coverage_evolution
+               and (g.cam_positions == e.cam_positions).all()
+               and g.n_points == e.n_points and torch.equal(g_pts, e_pts)
+               and g_regen == e_regen)
+    diff = max(abs(a - b) for a, b in zip(e.coverage_evolution, c.coverage_evolution))
+    same_path = (e.cam_positions.shape == c.cam_positions.shape
+                 and float(abs(e.cam_positions - c.cam_positions).max()) < 1e-4
+                 and e.n_points == c.n_points and e_regen == c_regen)
+    log(f"{label} (32x56, 8 poses, regeneration {g_regen}): captured "
+        f"{g.coverage_evolution} vs eager {e.coverage_evolution}, bit for bit "
+        f"{bitwise}; eager vs cpu {c.coverage_evolution}, max diff {diff:.2e}, "
+        f"same trajectory {same_path}")
+    if not bitwise:
+        raise AssertionError(f"{label}: the captured scan rollout differs from the eager one")
+    if diff > TOL_COVERAGE or not same_path:
+        raise AssertionError(f"{label}: the card's scan rollout disagrees with the CPU's")
+
+
+def expect_launches(label, got, want):
+    for name, k in want.items():
+        if got[name] != k:
+            raise AssertionError(f"{label}: kernel {name} launched {got[name]} times, "
+                                 f"expected {k} ({got})")
+
+
+def rises(label, cov):
+    if not all(c == c and 0.0 <= c <= 1.0 for c in cov) or not max(cov[1:]) > cov[0]:
+        raise AssertionError(f"{label}: coverage does not rise: {cov}")
+
+
+def cli_phase(params, f32_model, small, s_assets, dev):
+    """Phase 7 (module docstring). Returns the launches of its two paths by
+    kernel: {"cli": ..., "random_walk": ...}."""
+    import tempfile
+
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.config import Params
+    from nextbestpath_tpu_torch.eval.heldout import held_out_assets
+    from nextbestpath_tpu_torch.eval.nbp_planning import (
+        MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES, NBPPlanningRollout,
+        main_path_setup, seeded_nbp, test_nbp_planning)
+    from nextbestpath_tpu_torch.eval.random_walk import random_walk_rollout
+    from nextbestpath_tpu_torch.models.fold import fold_bn
+    from nextbestpath_tpu_torch.utils.checkpoint import load_nbp, save_nbp
+
+    n_poses = 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scenes = held_out_assets(params, 1, ("simple", "normal"), pad=False)
+    t_scenes = time.perf_counter() - t0
+    bf16 = seeded_nbp(dtype=torch.bfloat16).to(dev).eval()
+    x = torch.rand(1, 256, 256, 5, generator=torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        bf16(x)  # cuDNN picks its bf16 algorithms before the counted run
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    kept = []
+    results = test_nbp_planning(scenes, bf16, params=params, n_poses=n_poses,
+                                seed=MAIN_PATH_SEED, verbose=False, device=dev,
+                                rollouts=kept)
+    cli = dict(kernels.LAUNCHES)
+    log(f"CLI path: test_nbp_planning over {len(scenes)} held-out scenes (made in "
+        f"{t_scenes:.2f} s), {n_poses} poses each, legacy mode, bf16 U-Net; launches {cli}")
+    for a, roll in zip(scenes, kept):
+        r = results[a.name]
+        log(f"  {a.name} ({a.n_tris} triangles, lattice {a.pose_l}x{a.pose_h}): "
+            f"{r['wall_time_s'] / n_poses * 1e3:.2f} ms/pose, {sum(roll.regen_poses)} of "
+            f"{n_poses} poses regenerated, coverage "
+            f"{[round(c, 4) for c in r['coverage_evolution']]}, auc {r['auc']:.4f}, "
+            f"launches in its run {roll.launches}")
+        rises(a.name, r["coverage_evolution"])
+        expect_launches(a.name, roll.launches, {"ray_hits_pinhole": 1 + 2 * n_poses,
+                                               "ray_hits": 0, "min_sq_dists": n_poses})
+    expect_launches("CLI path", cli, {"ray_hits_pinhole": len(scenes) * (1 + 2 * n_poses),
+                                      "ray_hits": len(scenes),
+                                      "min_sq_dists": len(scenes) * n_poses})
+
+    # The checkpoint round trip of the full-width NBP.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "nbp.ckpt")
+        t0 = time.perf_counter()
+        save_nbp(path, bf16, epoch=1, extra={"note": "chip_smoke"})
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        back = seeded_nbp(seed=1, dtype=torch.bfloat16)  # other weights, overwritten
+        t0 = time.perf_counter()
+        epoch, extra = load_nbp(path, back)
+        t_load = time.perf_counter() - t0
+    back = back.to(dev).eval()
+    same_sd = all(torch.equal(v, back.state_dict()[k]) for k, v in bf16.state_dict().items())
+    with torch.no_grad():
+        same_out = all(torch.equal(a, b) for a, b in zip(bf16(x), back(x)))
+    log(f"checkpoint round trip: {size} bytes, saved in {t_save:.2f} s, loaded in "
+        f"{t_load:.2f} s, epoch {epoch}, extra {extra}; state_dict equal {same_sd}, "
+        f"bf16 forward equal {same_out}")
+    if not (same_sd and same_out and epoch == 1):
+        raise AssertionError("the checkpoint round trip changed the model")
+
+    # bf16 against f32, and the U-Net's device time.
+    f32 = f32_model.to(dev).eval()
+    with torch.no_grad():
+        (v32, o32), (v16, o16) = f32(x), bf16(x)
+    err_o = float((o16 - o32).abs().max())
+    err_v = float((v16 - v32).abs().max())
+    rel_v = err_v / float(v32.abs().max())
+    log(f"bf16 vs f32 forward (256x256x5): obstacle map max abs err {err_o:.3e}, value map "
+        f"{err_v:.3e} ({rel_v:.3e} of max |f32 value| {float(v32.abs().max()):.3e})")
+    if not (err_o <= 0.05 and err_v <= 0.05):
+        raise AssertionError("the bf16 forward is more than 0.05 from the f32 one")
+    unet_ms = {}
+    with torch.no_grad():
+        for label, m in (("f32", f32), ("bf16", bf16), ("f32 folded", fold_bn(f32)),
+                         ("bf16 folded", fold_bn(bf16))):
+            unet_ms[label] = kernels.device_ms(lambda m=m: m(x), 20)
+    log("U-Net forward device ms (256x256x5, batch 1): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in unet_ms.items()))
+
+    # The legacy host rollout on the main path, f32 and bf16.
+    _, main_assets, _ = main_path_setup()
+    for label, m in (("f32", f32), ("bf16", bf16)):
+        NBPPlanningRollout(main_assets, m, params=params, seed=MAIN_PATH_SEED,
+                           device=dev).run(n_poses=MAIN_PATH_WARMUP_POSES)
+        roll = NBPPlanningRollout(main_assets, m, params=params, seed=MAIN_PATH_SEED,
+                                  device=dev)
+        res = roll.run(n_poses=n_poses)
+        log(f"legacy host rollout, main path, {label}: {res.wall_time_s / n_poses * 1e3:.2f} "
+            f"ms/pose, {sum(roll.regen_poses)} of {n_poses} poses regenerated, coverage "
+            f"{[round(c, 4) for c in res.coverage_evolution]}")
+        rises(f"legacy {label}", res.coverage_evolution)
+
+    # The scan's capture options at phase 5's small config.
+    small_scan_check("scan with stratified draw and batched capture", s_assets,
+                     Params(dict(small.as_dict(), stratified_sampling=True,
+                                 batched_capture=True), flatten=False))
+
+    # The random-walk baseline at full width.
+    random_walk_rollout(scenes[0], params=params, n_poses=2, seed=MAIN_PATH_SEED, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = random_walk_rollout(scenes[0], params=params, n_poses=n_poses,
+                              seed=MAIN_PATH_SEED, device=dev)
+    walk = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"random walk {scenes[0].name}, {n_poses} poses: {res.wall_time_s / n_poses * 1e3:.2f} "
+        f"ms/pose, coverage {[round(c, 4) for c in res.coverage_evolution]}, auc "
+        f"{res.auc:.4f}, points {res.n_points}, launches {walk}")
+    rises("random walk", res.coverage_evolution)
+    expect_launches("random walk", walk, {"ray_hits_pinhole": 1 + n_poses, "ray_hits": 1,
+                                          "min_sq_dists": n_poses})
+    log(f"phase 7 peak memory {peak:.0f} MiB")
+    return {"cli": cli, "random_walk": walk}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", default=None,
@@ -479,7 +671,7 @@ def main() -> int:
 
     # 4. The main path: the planning rollout at full width.
     warm = NBPPlanningRollout(assets, model, params=params, seed=MAIN_PATH_SEED,
-                              device=dev)
+                              shared_rng=True, device=dev)
     warm.run(n_poses=MAIN_PATH_WARMUP_POSES)
     del warm
     n_poses = 6
@@ -488,7 +680,7 @@ def main() -> int:
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     roll = NBPPlanningRollout(assets, model, params=params, seed=MAIN_PATH_SEED,
-                              device=dev)
+                              shared_rng=True, device=dev)
     t_construct = time.perf_counter() - t0
     res = roll.run(n_poses=n_poses)
     launches = dict(kernels.LAUNCHES)
@@ -502,8 +694,7 @@ def main() -> int:
     # Rises: the stride subsample of the metric can dip for one pose (a
     # stride sharing a factor with the count), so the best later pose is
     # held against the first.
-    if not all(c == c and 0.0 <= c <= 1.0 for c in cov) or not max(cov[1:]) > cov[0]:
-        raise AssertionError(f"coverage does not rise: {cov}")
+    rises("rollout", cov)
     for name, k in launches.items():
         if k <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
@@ -524,7 +715,7 @@ def main() -> int:
     results = {}
     for d in ("cuda", "cpu"):
         m = seeded_nbp()
-        r = NBPPlanningRollout(s_assets, m, params=small, device=d,
+        r = NBPPlanningRollout(s_assets, m, params=small, device=d, shared_rng=True,
                                draws=TorchDraws(8, torch.device(d), "cpu"))
         results[d] = r.run(n_poses=4)
     c_gpu = results["cuda"].coverage_evolution
@@ -568,8 +759,7 @@ def main() -> int:
         f"rollout's {host_ms:.2f} ms/pose, peak memory {peak:.0f} MiB; graph launches "
         f"{scan.graph_launches}, replays {scan.replays}, host reads {scan.host_reads}; "
         f"launches: construction and warm-up {setup}, run {run_launches}")
-    if not all(c == c and 0.0 <= c <= 1.0 for c in cov) or not max(cov[1:]) > cov[0]:
-        raise AssertionError(f"scan coverage does not rise: {cov}")
+    rises("scan rollout", cov)
     retries = scan.max_plan_retries
     want_run = {"ray_hits_pinhole": 1 + 2 * n_poses, "ray_hits": 0,
                 "min_sq_dists": n_poses, "bfs_field": retries * n_regen,
@@ -591,33 +781,14 @@ def main() -> int:
 
     # The captured step against the same step run eagerly on the card and
     # on the CPU, on the small configuration with one CPU generator's draws.
-    small_runs = {}
-    for label, d, graphs in (("graphs", "cuda", True), ("eager", "cuda", False),
-                             ("cpu", "cpu", False)):
-        r = ScanRollout(s_assets, seeded_nbp(), params=small, device=d,
-                        draws=TorchDraws(8, torch.device(d), "cpu"))
-        r._use_graphs = graphs
-        out = r.run(n_poses=8)
-        small_runs[label] = (out, r.regen_poses,
-                             r.state.pc.points[:out.n_points].cpu())
-    (g, g_regen, g_pts), (e, e_regen, e_pts), (c, c_regen, _) = (
-        small_runs[k] for k in ("graphs", "eager", "cpu"))
-    bitwise = (g.coverage_evolution == e.coverage_evolution
-               and (g.cam_positions == e.cam_positions).all()
-               and g.n_points == e.n_points and torch.equal(g_pts, e_pts)
-               and g_regen == e_regen)
-    diff = max(abs(a - b) for a, b in zip(e.coverage_evolution, c.coverage_evolution))
-    same_path = (e.cam_positions.shape == c.cam_positions.shape
-                 and float(abs(e.cam_positions - c.cam_positions).max()) < 1e-4
-                 and e.n_points == c.n_points and e_regen == c_regen)
-    log(f"scan reference check (32x56, 8 poses, regeneration {g_regen}): captured "
-        f"{g.coverage_evolution} vs eager {e.coverage_evolution}, bit for bit "
-        f"{bitwise}; eager vs cpu {c.coverage_evolution}, max diff {diff:.2e}, "
-        f"same trajectory {same_path}")
-    if not bitwise:
-        raise AssertionError("the captured scan rollout differs from the eager one")
-    if diff > TOL_COVERAGE or not same_path:
-        raise AssertionError("the card's scan rollout disagrees with the CPU's")
+    small_scan_check("scan reference check", s_assets, small)
+
+    # 7. The evaluation CLI's path, the capture options and the baseline.
+    by_path = cli_phase(params, model, small, s_assets, dev)
+    for r in rows:
+        for path, counts in by_path.items():
+            r["launches_by_path"][path] = counts[r["name"]]
+            r["launches"] += counts[r["name"]]
 
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -1,12 +1,22 @@
 """NBP planning evaluation rollout on PyTorch.
 
 Port of ``nextbestpath_tpu/eval/nbp_planning.py``: the host-orchestrated
-``NBPPlanningRollout`` in its ``shared_rng`` mode (one set of role draws per
-pose, the stride subsample for the coverage metric). Per pose: the coverage
-metric (kernel K3), the loop-start frame (K1), the model input and the U-Net
-forward, on regeneration poses the layout fusion, candidate scoring, the
-distance field, path and orientations with the first-segment retry loop,
-then the move's four frames (K1). The per-scene tables are cast once with K2.
+``NBPPlanningRollout`` in both of its modes, and the multi-scene
+evaluation ``test_nbp_planning``. Per pose: the coverage metric (kernel
+K3), the loop-start frame (K1), the model input and the U-Net forward, on
+regeneration poses the layout fusion, candidate scoring, the distance
+field, path and orientations with the first-segment retry loop, then the
+move's four frames (K1). The per-scene tables are cast once with K2.
+
+The two modes differ in their draws and the metric's sampler:
+
+* ``shared_rng=False`` (the default, as the JAX package's): draws in the
+  sequential schedule of ``draws.py`` (one key a group, a fresh one for
+  each planning attempt), and the exact argsort subsample of the coverage
+  metric (``ops.coverage.coverage_percentage_exact``);
+* ``shared_rng=True``: the role schedule (one set of role draws a pose,
+  the same orientation draws for every attempt) and the stride subsample,
+  as the scan rollout draws them.
 
 Contract kept from the reference: obstacle threshold 0.13, layout fusion
 with the point-cloud projection and the current-height slice, trajectory
@@ -20,13 +30,16 @@ Random draws come from a provider (``draws.py``); the default is a
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .. import kernels
 from ..assets import generate_scene, pack_generated_scene
 from ..assets.scene_assets import SceneAssets
 from ..config import Params, default_params
@@ -34,7 +47,8 @@ from ..device import DeviceLike, resolve_device
 from ..draws import TorchDraws
 from ..geometry.cameras import CameraIntrinsics
 from ..models.unet import NBP
-from ..ops.coverage import compute_auc, coverage_percentage
+from ..ops.coverage import (compute_auc, coverage_percentage,
+                            coverage_percentage_exact)
 from ..ops.raytrace import tris_to_soa
 from ..ops.scatter2d import (binned_count_imgs, count_img, height_bins,
                              plan_count_imgs)
@@ -167,16 +181,18 @@ class NBPPlanningRollout:
     """Host-orchestrated eval rollout over device stages.
 
     nbp_model: a ``models.unet.NBP`` (put in eval mode on ``device``).
-    draws: a provider of the per-pose role draws (default: TorchDraws from
-    ``seed`` on the device). device: "cuda" unless the caller asks for the
-    CPU; raises if CUDA is asked for and absent."""
+    shared_rng: the mode (module docstring). draws: a provider of the
+    draws in the mode's schedule (default: TorchDraws from ``seed`` on the
+    device). device: "cuda" unless the caller asks for the CPU; raises if
+    CUDA is asked for and absent."""
 
     def __init__(self, assets: SceneAssets, nbp_model: NBP,
                  params: Optional[Params] = None, seed: int = 8,
-                 draws=None, max_plan_retries: int = 8,
-                 device: DeviceLike = "cuda"):
+                 draws=None, shared_rng: bool = False,
+                 max_plan_retries: int = 8, device: DeviceLike = "cuda"):
         self.device = dev = resolve_device(device)
         self.params = p = params or default_params()
+        self.shared_rng = bool(shared_rng)
         self.max_plan_retries = int(max_plan_retries)
         self.assets = assets
         self.model = nbp_model.to(dev).eval()
@@ -201,6 +217,10 @@ class NBPPlanningRollout:
         self.n_azim = assets.n_azim
         self._positions_np = self.tables.positions.cpu().numpy()
         self._gt_eb_np = self.tables.gt_edge_blocked.cpu().numpy()
+        # The last run's regeneration flag a pose and its kernel launches
+        # (the scene tables' K2 launch comes before, at construction).
+        self.regen_poses: List[bool] = []
+        self.launches: Dict[str, int] = {}
 
     def _pose5(self, idx_lh_rot) -> torch.Tensor:
         i_l, i_h, rot = idx_lh_rot
@@ -216,19 +236,44 @@ class NBPPlanningRollout:
                     gathering_factor=float(p.gathering_factor),
                     sensor_range=float(p.sensor_range))
 
+    def _group(self, role: str) -> None:
+        """A fresh key for the next group of draws (sequential schedule)."""
+        if not self.shared_rng:
+            self.draws.begin_group(role)
+
     def _frame_scores(self, role: str):
         n_px = self.intr.image_height * self.intr.image_width
+        self._group(role)
         return [self.draws.uniform(role, (n_px,), step=s)
                 for s in range(1, int(self.params.n_interpolation_steps) + 1)]
 
+    def _coverage(self, pc: PointBuffer) -> torch.Tensor:
+        if not self.shared_rng:
+            self._group("cov")
+            scores = self.draws.uniform("cov", (pc.capacity,))
+            return coverage_percentage_exact(self.gt, pc.points, pc.count,
+                                             scores)
+        c = torch.clamp(pc.count, min=1)
+        start_i = self.draws.randint("cov", 0, c)
+        stride_half = self.draws.randint(
+            "cov", 1, torch.clamp(c // 2, min=2), step=1)
+        return coverage_percentage(self.gt, pc.points, pc.count, start_i,
+                                   stride_half)
+
+    def _randint(self, role: str, high: int) -> int:
+        self._group(role)
+        return int(self.draws.randint(role, 0, high))
+
     @torch.inference_mode()
-    def run(self, n_poses: int = 101) -> RolloutResult:
+    def run(self, n_poses: int = 101, verbose: bool = False) -> RolloutResult:
         p = self.params
         dev = self.device
         n_px = self.intr.image_height * self.intr.image_width
         img_size = int(p.pc2img_size[0])
         n_steps = int(p.n_interpolation_steps)
         t1 = time.time()
+        launches0 = dict(kernels.LAUNCHES)
+        self.regen_poses = []
 
         pc = PointBuffer.create(int(p.full_pc_capacity), dev)
         traj = TrajectoryBuffer.create(8 * (n_poses + 4), dev)
@@ -254,17 +299,16 @@ class NBPPlanningRollout:
         coverage_evolution: List[float] = []
 
         for pose_i in range(n_poses):
-            self.draws.begin_pose()
+            if self.shared_rng:
+                self.draws.begin_pose()
             with record_function("coverage"):
-                c = torch.clamp(pc.count, min=1)
-                start_i = self.draws.randint("cov", 0, c)
-                stride_half = self.draws.randint(
-                    "cov", 1, torch.clamp(c // 2, min=2), step=1)
-                cov = float(coverage_percentage(self.gt, pc.points, pc.count,
-                                                start_i, stride_half))
+                cov = float(self._coverage(pc))
             coverage_evolution.append(cov)
+            if verbose and pose_i % 10 == 0:
+                print(f"pose {pose_i}: coverage {cov:.4f} pc {int(pc.count)}")
 
             cur_pose5 = self._pose5(cur)
+            self._group("obs")
             with record_function("observe"):
                 observe_current(self.tri_soa, self.n_tris, cur_pose5, pc,
                                 self.draws.uniform("obs", (n_px,)), self.intr,
@@ -302,21 +346,20 @@ class NBPPlanningRollout:
                         proj256, torch.from_numpy(banned).to(dev),
                         value_map_size=int(p.value_map_size[0]),
                         layout_size=img_size)
-                    plan_u = self.draws.uniform(
-                        "plan", (int(p.max_path_len), self.n_azim))
+                    plan_u = (self._plan_draws() if self.shared_rng
+                              else None)
                     path, path_record = self._plan(
                         scores, layout, cur_pose5, cur, edge_memo,
                         value_map[0], visited_rot, gt_eb, plan_u)
 
             if not path:
-                rot = int(self.draws.randint("rot", 0, self.n_azim))
-                nxt = (cur[0], cur[1], rot)
+                nxt = (cur[0], cur[1], self._randint("rot", self.n_azim))
             else:
                 nxt = path[path_record]
                 if nxt in set(idx_history):
-                    rot = int(self.draws.randint("rot2", 0, self.n_azim))
-                    nxt = (nxt[0], nxt[1], rot)
+                    nxt = (nxt[0], nxt[1], self._randint("rot2", self.n_azim))
 
+            self.regen_poses.append(regen)
             idx_history.append(cur)
             with record_function("move"):
                 move_and_capture(self.tri_soa, self.n_tris, cur_pose5,
@@ -331,6 +374,8 @@ class NBPPlanningRollout:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = time.time() - t1
+        self.launches = {k: n - launches0[k]
+                         for k, n in kernels.LAUNCHES.items()}
         return RolloutResult(
             coverage_evolution=coverage_evolution,
             auc=compute_auc(coverage_evolution),
@@ -339,11 +384,17 @@ class NBPPlanningRollout:
             n_points=int(pc.count),
             steps_per_sec=n_poses / wall)
 
+    def _plan_draws(self) -> torch.Tensor:
+        return self.draws.uniform("plan", (int(self.params.max_path_len),
+                                           self.n_azim))
+
     def _plan(self, scores, layout, cur_pose5, cur, edge_memo, value_map,
               visited_rot, gt_eb, plan_u):
         """Field -> goal -> path -> first-segment GT check, retried with the
         collision memoised. Updates edge_memo in place; returns (path,
-        path_record). Every retry uses the same orientation draws."""
+        path_record). Every attempt that reaches the orientation pick uses
+        ``plan_u``, or, when it is None (sequential schedule), a fresh
+        group of draws."""
         p = self.params
         dev = self.device
         max_len = int(p.max_path_len)
@@ -362,10 +413,15 @@ class NBPPlanningRollout:
             path_arr, path_len, _ = extract_path(dist, blocked, goal, self.L,
                                                  self.H, max_len=max_len)
             path_len = int(path_len)
+            if plan_u is None:
+                self._group("plan")
+                attempt_u = self._plan_draws()
+            else:
+                attempt_u = plan_u
             rots = pick_orientations(
                 path_arr, torch.arange(max_len, device=dev) < path_len,
                 value_map, self.tables.positions, cur_pose5[:3], visited,
-                plan_u, n_azim=self.n_azim,
+                attempt_u, n_azim=self.n_azim,
                 value_map_size=int(p.value_map_size[0]))
             path_np = path_arr.cpu().numpy()
             rots_np = rots.cpu().numpy()
@@ -382,12 +438,58 @@ class NBPPlanningRollout:
         return [], 0
 
 
-def seeded_nbp(width: int = 64, seed: int = 0) -> NBP:
-    """An NBP U-Net with random weights from ``seed`` and the untrained
-    obstacle decoder opened (``final2`` bias -4), as the JAX package's bench
-    does without a checkpoint."""
+def scene_result(res: RolloutResult) -> dict:
+    """A scene's entry in the results JSON, under the JAX function's keys."""
+    return {"coverage_evolution": res.coverage_evolution, "auc": res.auc,
+            "cam_positions": res.cam_positions.tolist(),
+            "wall_time_s": res.wall_time_s,
+            "steps_per_sec": res.steps_per_sec}
+
+
+def test_nbp_planning(assets_list: Sequence[SceneAssets], nbp_model: NBP,
+                      params: Optional[Params] = None, n_poses: int = 101,
+                      results_path: Optional[str] = None, seed: int = 8,
+                      verbose: bool = True, device: DeviceLike = "cuda",
+                      make_draws: Optional[Callable[[int], object]] = None,
+                      rollouts: Optional[list] = None) -> Dict[str, dict]:
+    """Multi-scene evaluation (JAX ``test_nbp_planning``): a legacy-mode
+    ``NBPPlanningRollout`` a scene, each from ``seed``. Returns, and writes
+    to ``results_path`` as JSON, each scene's coverage evolution, AUC,
+    camera positions, wall time and poses a second by scene name.
+    make_draws(seed) gives a scene's draws provider (default: TorchDraws);
+    ``rollouts``, a list, receives each scene's rollout (its regeneration
+    flags and launches)."""
+    results = {}
+    for assets in assets_list:
+        rollout = NBPPlanningRollout(
+            assets, nbp_model, params=params, seed=seed, device=device,
+            draws=None if make_draws is None else make_draws(seed))
+        res = rollout.run(n_poses=n_poses, verbose=verbose)
+        if rollouts is not None:
+            rollouts.append(rollout)
+        results[assets.name] = scene_result(res)
+        if verbose:
+            print(f"{assets.name}: final coverage "
+                  f"{res.coverage_evolution[-1]:.4f} auc {res.auc:.4f} "
+                  f"({res.steps_per_sec:.2f} poses/s)")
+    if results_path:
+        os.makedirs(os.path.dirname(results_path) or ".", exist_ok=True)
+        with open(results_path, "w") as f:
+            json.dump(results, f)
+    return results
+
+
+# pytest collects test_* functions of modules that tests import by name.
+test_nbp_planning.__test__ = False
+
+
+def seeded_nbp(width: int = 64, seed: int = 0,
+               dtype: torch.dtype = torch.float32) -> NBP:
+    """An NBP U-Net computing in ``dtype`` with random weights from
+    ``seed`` and the untrained obstacle decoder opened (``final2`` bias
+    -4), as the JAX package's bench does without a checkpoint."""
     torch.manual_seed(seed)
-    model = NBP(width=width)
+    model = NBP(width=width, dtype=dtype)
     with torch.no_grad():
         model.final2.bias -= 4.0
     return model

@@ -31,8 +31,11 @@ provider therefore see the same numbers.
 Behaviour kept from the JAX class: the U-Net runs only on regeneration
 poses (its output is unused otherwise), and anti-revisit tests the visited
 (position, rotation) grid rather than the host rollout's history list.
-Not ported: the ``stratified_sampling`` and ``batched_capture`` options
-(they raise), ``segment_len`` (a TPU watchdog workaround that gives
+The params ``stratified_sampling`` (the two-stage stratified pixel draw of
+``sim.sensor.backproject_sample``, where it applies) and
+``batched_capture`` (a move's frames appended with one scatter) select the
+JAX class's capture options; their draws are static buffers too.
+Not ported: ``segment_len`` (a TPU watchdog workaround that gives
 identical results), the ``ablate`` profiling switch (the stage ranges of
 ``torch.profiler.record_function`` take its place), ``BatchedScanRollout``
 and ``run_interleaved``.
@@ -52,7 +55,7 @@ from .. import kernels
 from ..assets.scene_assets import SceneAssets
 from ..config import Params, default_params
 from ..device import DeviceLike, resolve_device
-from ..draws import TorchDraws
+from ..draws import TorchDraws, frame_draws
 from ..geometry.cameras import CameraIntrinsics
 from ..models.fold import fold_bn as fold_bn_model
 from ..models.unet import NBP
@@ -65,7 +68,7 @@ from ..planning.grid_paths import (DIRS, EDGE_COLLISION, EDGE_PASSABLE,
                                    extract_path, layout_edge_blocked,
                                    pick_orientations)
 from ..sim.rollout import TrajectoryBuffer, move_and_capture, observe_current
-from ..sim.sensor import PointBuffer
+from ..sim.sensor import PointBuffer, stratified_applies
 from ..sim.tables import build_scene_tables
 from .nbp_planning import (RolloutResult, build_plan_projections,
                            fuse_layout_from_projections, select_goal)
@@ -178,6 +181,8 @@ class PoseDraws:
     rot2: torch.Tensor        # int64
     move: torch.Tensor        # (n_steps, H*W) f32
     plan: torch.Tensor        # (max_len, A) f32
+    obs_ranks: Optional[torch.Tensor]   # (n_slots,) f32, stratified only
+    move_ranks: Optional[torch.Tensor]  # (n_steps, n_slots) f32, likewise
 
 
 def scene_arrays_from_assets(assets: SceneAssets, n_pieces: int = 4,
@@ -217,9 +222,6 @@ class ScanRollout:
                  device: DeviceLike = "cuda"):
         self.device = dev = resolve_device(device)
         self.params = p = params or default_params()
-        for opt in ("stratified_sampling", "batched_capture"):
-            if p.get(opt, False):
-                raise NotImplementedError(f"{opt} is not ported yet")
         self.assets = assets
         self.max_plan_retries = int(max_plan_retries)
         self.model = (fold_bn_model(model) if fold_bn else model).to(dev).eval()
@@ -238,6 +240,11 @@ class ScanRollout:
         self._elev = torch.full((1,), float(assets.elevations_deg[2]),
                                 dtype=torch.float32, device=dev)
         self.n_px = self.intr.image_height * self.intr.image_width
+        self.n_slots = int(p.points_per_frame)
+        self.stratified = bool(p.get("stratified_sampling", False)) and \
+            stratified_applies(self.n_px, self.n_slots,
+                               float(p.gathering_factor))
+        self.batched_capture = bool(p.get("batched_capture", False))
         self.n_steps = int(p.n_interpolation_steps)
         self.max_len = int(p.max_path_len)
         self.state: Optional[ScanState] = None
@@ -261,7 +268,11 @@ class ScanRollout:
             obs=z(self.n_px, torch.float32), rot=z((), torch.int64),
             rot2=z((), torch.int64),
             move=z((self.n_steps, self.n_px), torch.float32),
-            plan=z((self.max_len, self.A), torch.float32))
+            plan=z((self.max_len, self.A), torch.float32),
+            obs_ranks=z(self.n_slots, torch.float32)
+            if self.stratified else None,
+            move_ranks=z((self.n_steps, self.n_slots), torch.float32)
+            if self.stratified else None)
         if dev.type == "cuda":
             self._regen_host = torch.zeros(1, dtype=torch.bool).pin_memory()
             self._regen_read = torch.cuda.Event()
@@ -270,9 +281,17 @@ class ScanRollout:
 
     def _capture_kw(self):
         p = self.params
-        return dict(n_slots=int(p.points_per_frame),
+        return dict(n_slots=self.n_slots,
                     gathering_factor=float(p.gathering_factor),
                     sensor_range=float(p.sensor_range))
+
+    def _frame(self, draws, role: str, step: Optional[int] = None):
+        return frame_draws(draws, role, self.n_px, self.n_slots,
+                           self.stratified, step=step)
+
+    def _move_kw(self):
+        return dict(n_steps=self.n_steps, n_azim=self.A,
+                    batched=self.batched_capture, **self._capture_kw())
 
     def _pose5(self, idx3: torch.Tensor) -> torch.Tensor:
         pos = _at(self.scene.positions, idx3[0], idx3[1])
@@ -297,7 +316,7 @@ class ScanRollout:
         """The initial state in place: empty buffers, the start pose, and the
         initial captures (a full interpolation from the start to itself)."""
         s = self.state
-        for t in (s.pc._storage, s.pc.count, s.traj.xyz, s.traj.count,
+        for t in (s.pc._storage, s.pc.count, s.traj._storage, s.traj.count,
                   s.has_prev, s.path, s.path_len, s.path_record, s.edge_memo,
                   s.banned, s.visited_rot, s.pose_i, self.cov_curve):
             t.zero_()
@@ -307,12 +326,14 @@ class ScanRollout:
         s.prev.copy_(s.cur)
         self._visit(s.cur)
         pose0 = self._pose5(s.cur)
-        frames = torch.stack([draws.uniform("init", (self.n_px,), step=k)
-                              for k in range(1, self.n_steps + 1)])
+        frames = [self._frame(draws, "init", step=k)
+                  for k in range(1, self.n_steps + 1)]
         move_and_capture(self.scene.tri_soa, self.scene.n_tris, pose0, pose0,
-                         s.pc, s.traj, frames.to(self.device), self.intr,
-                         n_steps=self.n_steps, n_azim=self.A,
-                         **self._capture_kw())
+                         s.pc, s.traj, [f[0].to(self.device) for f in frames],
+                         self.intr,
+                         frame_ranks=([f[1].to(self.device) for f in frames]
+                                      if self.stratified else None),
+                         **self._move_kw())
 
     def _visit(self, idx3: torch.Tensor) -> None:
         flat = (idx3[0] * self.H + idx3[1]) * self.A + idx3[2]
@@ -326,11 +347,17 @@ class ScanRollout:
         d.cov_start.copy_(draws.randint("cov", 0, c))
         d.cov_stride.copy_(draws.randint("cov", 1, torch.clamp(c // 2, min=2),
                                          step=1))
-        d.obs.copy_(draws.uniform("obs", (self.n_px,)))
+        scores, ranks = self._frame(draws, "obs")
+        d.obs.copy_(scores)
+        if self.stratified:
+            d.obs_ranks.copy_(ranks)
         d.rot.copy_(draws.randint("rot", 0, self.A))
         d.rot2.copy_(draws.randint("rot2", 0, self.A))
         for k in range(self.n_steps):
-            d.move[k].copy_(draws.uniform("move", (self.n_px,), step=k + 1))
+            scores, ranks = self._frame(draws, "move", step=k + 1)
+            d.move[k].copy_(scores)
+            if self.stratified:
+                d.move_ranks[k].copy_(ranks)
 
     # -- the step ------------------------------------------------------------
 
@@ -345,7 +372,8 @@ class ScanRollout:
         cur_pose5 = self._pose5(s.cur)
         with record_function("observe"):
             observe_current(sc.tri_soa, sc.n_tris, cur_pose5, s.pc, d.obs,
-                            self.intr, **self._capture_kw())
+                            self.intr, frame_ranks=d.obs_ranks,
+                            **self._capture_kw())
         P = s.path.shape[0]
         exhausted = s.path_record >= s.path_len
         cand = _at(s.path, s.path_record.clamp(0, P - 1))
@@ -458,8 +486,7 @@ class ScanRollout:
         with record_function("move"):
             move_and_capture(sc.tri_soa, sc.n_tris, pre.cur_pose5,
                              self._pose5(nxt), s.pc, s.traj, d.move, self.intr,
-                             n_steps=self.n_steps, n_azim=self.A,
-                             **self._capture_kw())
+                             frame_ranks=d.move_ranks, **self._move_kw())
         self._visit(nxt)
         s.prev.copy_(s.cur)
         s.cur.copy_(nxt)

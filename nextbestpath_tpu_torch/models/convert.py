@@ -1,17 +1,19 @@
-"""Flax NBP variables (as numpy) -> the port's NBP ``state_dict``.
+"""Flax NBP variables (as numpy) <-> the port's NBP ``state_dict``.
 
-Takes the nested ``params`` and ``batch_stats`` dicts of the JAX package's
-``NBP`` with numpy leaves (no flax needed here). Flax names its modules
-``<Type>_<n>`` in creation order; they are sorted by that numeric suffix
-(``ConvBlock_10`` after ``ConvBlock_9``), which is the order of the port's
-``conv_blocks``, ``up_convs`` and ``att_gates``. Conv kernels go from HWIO
-to OIHW. ``log_vars`` (the training loss's parameters) is skipped.
+Takes and gives the nested ``params`` and ``batch_stats`` dicts of the JAX
+package's ``NBP`` with numpy leaves (no flax needed here). Flax names its
+modules ``<Type>_<n>`` in creation order; they are sorted by that numeric
+suffix (``ConvBlock_10`` after ``ConvBlock_9``), which is the order of the
+port's ``conv_blocks``, ``up_convs`` and ``att_gates``. Conv kernels go from
+HWIO to OIHW and back. ``log_vars`` (the training loss's parameters) maps
+to the port's ``log_vars`` both ways. A checkpoint loads into the port as
+``load_checkpoint`` -> ``flax_to_state_dict`` -> ``load_state_dict``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -66,4 +68,51 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping
                 s[f"BatchNorm_{j}"])
     for head in ("final1", "final2"):
         _conv(out, head, params[head]["Conv_0"])
+    out["log_vars"] = torch.from_numpy(np.array(
+        params.get("log_vars", np.zeros(2, np.float32)), np.float32))
     return out
+
+
+def _module_names(sd: Mapping[str, torch.Tensor], group: str):
+    idx = {int(k.split(".")[1]) for k in sd if k.startswith(group + ".")}
+    return sorted(idx)
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor]
+                       ) -> Tuple[Dict, Dict]:
+    """(params, batch_stats) with numpy f32 leaves, in flax's names, from
+    an unfolded ``models.unet.NBP`` state_dict: the inverse of
+    ``flax_to_state_dict``."""
+    def arr(key):
+        return sd[key].detach().cpu().numpy().astype(np.float32)
+
+    def conv(src):
+        return {"Conv_0": {
+            "kernel": np.ascontiguousarray(arr(f"{src}.weight")
+                                           .transpose(2, 3, 1, 0)),
+            "bias": arr(f"{src}.bias")}}
+
+    def bn(src):
+        return ({dst: arr(f"{src}.{name}") for dst, name in _BN_KEYS},
+                {dst: arr(f"{src}.{name}") for dst, name in _STAT_KEYS})
+
+    params: Dict = {}
+    stats: Dict = {}
+    blocks = (("conv_blocks", "ConvBlock", (("conv0", "bn0"),
+                                            ("conv1", "bn1"))),
+              ("up_convs", "UpConv", (("conv", "bn"),)),
+              ("att_gates", "AttentionGate", (("w_g", "bn_g"), ("w_x", "bn_x"),
+                                              ("psi", "bn_psi"))))
+    for group, flax_name, pairs in blocks:
+        for i in _module_names(sd, group):
+            p, s = {}, {}
+            for j, (c, b) in enumerate(pairs):
+                p[f"TorchConv_{j}"] = conv(f"{group}.{i}.{c}")
+                p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"] = bn(
+                    f"{group}.{i}.{b}")
+            params[f"{flax_name}_{i}"] = p
+            stats[f"{flax_name}_{i}"] = s
+    for head in ("final1", "final2"):
+        params[head] = conv(head)
+    params["log_vars"] = arr("log_vars")
+    return params, stats

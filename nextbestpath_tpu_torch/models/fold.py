@@ -7,7 +7,9 @@ convolution whose output it consumes:
     y = (W*x + b - mean) / sqrt(var + eps) * scale + bias
       = (W * s) * x + (b * s + (bias - mean * s)),   s = scale / sqrt(var + eps)
 
-computed in f32 in the JAX package's order of operations. Every block of
+computed in f32 in the JAX package's order of operations, into the f32
+parameters; a bf16 model then computes with the folded kernels cast to
+bf16, as JAX ``models/fold.py`` keeps the kernel's f32 dtype. Every block of
 ``models.unet.NBP`` pairs each convolution with the BatchNorm after it
 (``conv0``/``bn0``, ``conv``/``bn``, ``w_g``/``bn_g`` ...); the heads
 ``final1``/``final2`` have none.

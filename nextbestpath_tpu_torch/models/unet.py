@@ -1,8 +1,8 @@
 """NBP dual-decoder attention U-Net as a PyTorch module.
 
-Port of ``nextbestpath_tpu/models/unet.py::NBP`` (f32 only). The module
-computes in NCHW and takes and returns NHWC at its boundary, as the JAX
-package's layouts:
+Port of ``nextbestpath_tpu/models/unet.py::NBP``. The module computes in
+NCHW and takes and returns NHWC at its boundary, as the JAX package's
+layouts:
 
     forward(x (B, S, S, 5)) -> (value_map (B, S/4, S/4, 8),
                                 obstacle_map (B, S, S, 1))
@@ -14,10 +14,22 @@ UpConv's ``jax.image.resize(..., "nearest")``.
 Submodules are kept in the order flax numbers its auto-named modules
 (``ConvBlock_0..10``, ``UpConv_0..5``, ``AttentionGate_0..5``), so that
 ``models/convert.py`` maps a flax tree onto ``state_dict`` by index.
+``log_vars`` (2,), the training loss's log-variances, is a parameter here
+as in the flax module, which the forward does not read.
+
+Precision mirrors flax's ``dtype``: parameters stay f32, and with
+``dtype=torch.bfloat16`` every convolution (the 1x1 gate convolutions and
+the heads included) casts its input, kernel and bias to bf16 and returns
+bf16; BatchNorm takes its input to f32 and returns f32; both outputs are
+cast to f32. With the BatchNorms folded (``models/fold.py``) the
+activations therefore stay bf16 through ReLU, pooling and the gates. The
+casts are explicit, not ``torch.autocast``, so the CPU and the card give
+the same dtypes.
 
 Numerics: ``NBP.forward`` runs with ``torch.backends.cudnn.allow_tf32``
-off and puts the caller's setting back when it returns, so its convolutions
-on the card run in full f32 as the reference's do (it has no matmul).
+off and puts the caller's setting back when it returns, so its f32
+convolutions on the card run in full f32 as the reference's do (it has no
+matmul).
 """
 
 from __future__ import annotations
@@ -45,57 +57,86 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
+class Conv(nn.Conv2d):
+    """Conv2d with 'same' padding computing in ``dtype`` (flax
+    ``nn.Conv(dtype=...)``): input, kernel and bias cast to it, output in
+    it. The parameters stay f32."""
+
+    def __init__(self, cin: int, cout: int, k: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, k, padding=k // 2)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        padding=self.padding)
+
+
+def _norm(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm in f32 (flax ``BatchNorm(dtype=float32)``); a folded one
+    (``nn.Identity``) leaves x in the convolution's dtype."""
+    return x if isinstance(bn, nn.Identity) else bn(x.float())
+
+
 class ConvBlock(nn.Module):
     """(Conv3x3 -> BN -> ReLU) x 2."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
-        self.conv0 = nn.Conv2d(cin, cout, 3, padding=1)
+        self.conv0 = Conv(cin, cout, 3, dtype)
         self.bn0 = _bn(cout)
-        self.conv1 = nn.Conv2d(cout, cout, 3, padding=1)
+        self.conv1 = Conv(cout, cout, 3, dtype)
         self.bn1 = _bn(cout)
 
     def forward(self, x):
-        x = F.relu(self.bn0(self.conv0(x)))
-        return F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(_norm(self.bn0, self.conv0(x)))
+        return F.relu(_norm(self.bn1, self.conv1(x)))
 
 
 class UpConv(nn.Module):
     """2x nearest upsample -> Conv3x3 -> BN -> ReLU."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 3, padding=1)
+        self.conv = Conv(cin, cout, 3, dtype)
         self.bn = _bn(cout)
 
     def forward(self, x):
         x = F.interpolate(x, scale_factor=2, mode="nearest")
-        return F.relu(self.bn(self.conv(x)))
+        return F.relu(_norm(self.bn, self.conv(x)))
 
 
 class AttentionGate(nn.Module):
     """x * sigmoid(BN(psi(relu(BN(W_g g) + BN(W_x x)))))."""
 
-    def __init__(self, cg: int, cx: int, f_int: int):
+    def __init__(self, cg: int, cx: int, f_int: int, dtype=torch.float32):
         super().__init__()
-        self.w_g = nn.Conv2d(cg, f_int, 1)
+        self.w_g = Conv(cg, f_int, 1, dtype)
         self.bn_g = _bn(f_int)
-        self.w_x = nn.Conv2d(cx, f_int, 1)
+        self.w_x = Conv(cx, f_int, 1, dtype)
         self.bn_x = _bn(f_int)
-        self.psi = nn.Conv2d(f_int, 1, 1)
+        self.psi = Conv(f_int, 1, 1, dtype)
         self.bn_psi = _bn(1)
 
     def forward(self, g, x):
-        a = F.relu(self.bn_g(self.w_g(g)) + self.bn_x(self.w_x(x)))
-        return x * torch.sigmoid(self.bn_psi(self.psi(a)))
+        a = F.relu(_norm(self.bn_g, self.w_g(g))
+                   + _norm(self.bn_x, self.w_x(x)))
+        return x * torch.sigmoid(_norm(self.bn_psi, self.psi(a)))
 
 
 class NBP(nn.Module):
-    """Dual-decoder attention U-Net; NHWC in, NHWC out."""
+    """Dual-decoder attention U-Net; NHWC in, NHWC out (f32), computing
+    in ``dtype`` (f32 or bf16; module docstring)."""
 
     def __init__(self, img_ch: int = 5, output_ch1: int = 8,
-                 output_ch2: int = 1, width: int = 64):
+                 output_ch2: int = 1, width: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"NBP computes in float32 or bfloat16, not "
+                             f"{dtype}")
+        self.dtype = dtype
         w = width
         # Flax creation order: encoder, then decoder 1, then decoder 2.
         blocks = [(img_ch, w), (w, 2 * w), (2 * w, 4 * w), (4 * w, 8 * w),
@@ -103,16 +144,19 @@ class NBP(nn.Module):
                   (16 * w, 8 * w), (8 * w, 4 * w),                      # dec 1
                   (16 * w, 8 * w), (8 * w, 4 * w), (4 * w, 2 * w),       # dec 2
                   (2 * w, w)]
-        self.conv_blocks = nn.ModuleList(ConvBlock(a, b) for a, b in blocks)
+        self.conv_blocks = nn.ModuleList(ConvBlock(a, b, dtype)
+                                         for a, b in blocks)
         ups = [(16 * w, 8 * w), (8 * w, 4 * w),
                (16 * w, 8 * w), (8 * w, 4 * w), (4 * w, 2 * w), (2 * w, w)]
-        self.up_convs = nn.ModuleList(UpConv(a, b) for a, b in ups)
+        self.up_convs = nn.ModuleList(UpConv(a, b, dtype) for a, b in ups)
         gates = [(8 * w, 8 * w, 4 * w), (4 * w, 4 * w, 2 * w),
                  (8 * w, 8 * w, 4 * w), (4 * w, 4 * w, 2 * w),
                  (2 * w, 2 * w, w), (w, w, w // 2)]
-        self.att_gates = nn.ModuleList(AttentionGate(*g) for g in gates)
-        self.final1 = nn.Conv2d(4 * w, output_ch1, 1)
-        self.final2 = nn.Conv2d(w, output_ch2, 1)
+        self.att_gates = nn.ModuleList(AttentionGate(*g, dtype=dtype)
+                                       for g in gates)
+        self.final1 = Conv(4 * w, output_ch1, 1, dtype)
+        self.final2 = Conv(w, output_ch2, 1, dtype)
+        self.log_vars = nn.Parameter(torch.zeros(2))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         with cudnn_f32():
@@ -142,4 +186,5 @@ class NBP(nn.Module):
         e2 = up[5](e3)
         e2 = cb[10](torch.cat([ag[5](e2, x1), e2], dim=1))
         out2 = torch.sigmoid(self.final2(e2))
-        return out1.permute(0, 2, 3, 1), out2.permute(0, 2, 3, 1)
+        return (out1.float().permute(0, 2, 3, 1),
+                out2.float().permute(0, 2, 3, 1))

@@ -1,8 +1,12 @@
 """Coverage metric over fixed-capacity point buffers.
 
-Port of ``nextbestpath_tpu/ops/coverage.py`` (the parts the planning
-rollout runs): the share of GT points with a reconstructed point within the
-threshold, against a stride subsample of the cloud, and its AUC.
+Port of ``nextbestpath_tpu/ops/coverage.py`` (the parts the rollouts run):
+the share of GT points with a reconstructed point within the threshold,
+against a random subsample of the cloud, and its AUC. Two samplers, as the
+JAX package's: the stride subsample (``fast_sampling=True``, the scan and
+the ``shared_rng`` host rollout) and the exact random permutation by a
+stable argsort over the whole capacity (``subsample_buffer``, the legacy
+host rollout and the random walk).
 
 ``min_dists`` launches kernel K3 (``csrc/coverage.cu``) for CUDA tensors and
 takes its plain version, ``min_sq_dists_plain``, for CPU tensors. Both take
@@ -111,6 +115,33 @@ def n_sample_for(n_gt: int, capacity: int, weight: int = 2) -> int:
     return n_sample
 
 
+def subsample_buffer(scores_u: torch.Tensor, count: torch.Tensor,
+                     n_sample: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random subset without replacement of the buffer's valid prefix.
+
+    scores_u: (C,) uniform draws, one a slot of the whole capacity. Invalid
+    slots score 2.0 and a stable argsort keeps the n_sample smallest, ties
+    to the lower slot, as ``jnp.argsort``; uniform f32 draws do tie at a
+    2M capacity. Returns (indices, valid): when count <= n_sample every
+    valid slot is taken once, and the valid ones lead."""
+    slots = torch.arange(scores_u.shape[0], device=scores_u.device)
+    scores = torch.where(slots < count, scores_u.to(torch.float32),
+                         torch.full_like(scores_u, 2.0, dtype=torch.float32))
+    idx = torch.sort(scores, stable=True).indices[:n_sample]
+    return idx, idx < count
+
+
+def _coverage_of_sample(gt: torch.Tensor, pts: torch.Tensor,
+                        count: torch.Tensor, idx: torch.Tensor,
+                        valid: torch.Tensor, threshold: float
+                        ) -> torch.Tensor:
+    # Both samplers put their valid slots in a leading prefix, so the count
+    # bounds K3's inner loop.
+    dmin = min_dists(gt, pts[idx], valid, s_count=count)
+    cov = (dmin < threshold).to(torch.float32).sum() / max(gt.shape[0], 1)
+    return torch.where(count > 0, cov, torch.zeros_like(cov))
+
+
 def coverage_percentage(gt: torch.Tensor, pts: torch.Tensor,
                         count: torch.Tensor, start: torch.Tensor,
                         stride_half: torch.Tensor, threshold: float = 1.0,
@@ -120,10 +151,19 @@ def coverage_percentage(gt: torch.Tensor, pts: torch.Tensor,
     buffer is empty. Returns a 0-d f32 tensor on the buffer's device."""
     n_sample = n_sample_for(gt.shape[0], pts.shape[0], weight)
     idx, valid = stride_subsample(start, stride_half, count, n_sample)
-    sampled = pts[idx]
-    dmin = min_dists(gt, sampled, valid, s_count=count)
-    cov = (dmin < threshold).to(torch.float32).sum() / max(gt.shape[0], 1)
-    return torch.where(count > 0, cov, torch.zeros_like(cov))
+    return _coverage_of_sample(gt, pts, count, idx, valid, threshold)
+
+
+def coverage_percentage_exact(gt: torch.Tensor, pts: torch.Tensor,
+                              count: torch.Tensor, scores_u: torch.Tensor,
+                              threshold: float = 1.0, weight: int = 2
+                              ) -> torch.Tensor:
+    """``coverage_percentage`` over the exact random-permutation subsample
+    (``subsample_buffer`` with ``scores_u``, (C,) draws; the JAX package's
+    default ``fast_sampling=False``)."""
+    n_sample = n_sample_for(gt.shape[0], pts.shape[0], weight)
+    idx, valid = subsample_buffer(scores_u, count, n_sample)
+    return _coverage_of_sample(gt, pts, count, idx, valid, threshold)
 
 
 def compute_auc(y, dx: float = 1.0 / 40.0) -> float:

@@ -1,13 +1,15 @@
 """Where a pose's time goes: a planning rollout under ``torch.profiler``.
 
     python3 -m nextbestpath_tpu_torch.profile_rollout [--poses 6]
-        [--rollout host|scan]
+        [--rollout host|scan|cli]
 
 Runs the main path that ``chip_smoke.py`` drives
 (``eval.nbp_planning.main_path_setup``: procgen ``simple`` seed 8, default
 config, full-width NBP in f32 with seeded weights and the obstacle decoder
-opened) through the host rollout (``NBPPlanningRollout``) or the scan
-rollout (``ScanRollout``), warms up as the smoke does, then profiles
+opened) through the host rollout (``NBPPlanningRollout``, ``shared_rng``),
+the scan rollout (``ScanRollout``) or the evaluation CLI's configuration
+(``cli``: the host rollout in its default legacy mode with the same
+weights in bf16), warms up as the smoke does, then profiles
 ``--poses`` poses on the card: the scan twice, its pose replayed as CUDA
 graphs and then the same steps run eagerly, whose stage ranges split the
 graphs' device time by stage. Prints, a run:
@@ -37,7 +39,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .eval.nbp_planning import (MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES,
-                                NBPPlanningRollout, main_path_setup)
+                                NBPPlanningRollout, main_path_setup,
+                                seeded_nbp)
 from .eval.scan_rollout import ScanRollout
 
 STAGES = ("coverage", "observe", "projections", "unet", "plan", "move", "pre",
@@ -91,13 +94,17 @@ def _runs(kind: str):
     """(label, run(n_poses)) pairs to profile, each warmed up."""
     params, assets, model = main_path_setup()
     dev = torch.device("cuda")
-    if kind == "host":
+    if kind in ("host", "cli"):
+        if kind == "cli":
+            model = seeded_nbp(dtype=torch.bfloat16)
+
         def make():
             return NBPPlanningRollout(assets, model, params=params,
-                                      seed=MAIN_PATH_SEED, device=dev)
+                                      seed=MAIN_PATH_SEED,
+                                      shared_rng=kind == "host", device=dev)
         make().run(n_poses=MAIN_PATH_WARMUP_POSES)
         roll = make()
-        return [("host", lambda n: roll.run(n_poses=n))]
+        return [(kind, lambda n: roll.run(n_poses=n))]
     scan = ScanRollout(assets, model, params=params, device=dev)
     # Each mode warms up on its own: the capture, and the eager steps'
     # allocations outside the graphs' memory pool.
@@ -158,7 +165,8 @@ def _profile(label: str, run, n: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--poses", type=int, default=6)
-    ap.add_argument("--rollout", choices=("host", "scan"), default="host")
+    ap.add_argument("--rollout", choices=("host", "scan", "cli"),
+                    default="host")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")

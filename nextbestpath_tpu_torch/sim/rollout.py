@@ -8,12 +8,15 @@ processed again at the start of the next pose (``observe_current``), so a
 pose contributes five frames.
 
 Each frame's random pixel scores are an input (``frame_scores``), drawn by
-the caller from a provider in ``draws.py``.
+the caller from a provider in ``draws.py``; ``frame_ranks``, the strata's
+ranks, selects the stratified draw. ``batched=True`` lands a move's frames
+with one scatter into the cloud and one into the trajectory (JAX
+``batched=True``) instead of one append a substep.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -29,9 +32,14 @@ class TrajectoryBuffer:
     slot."""
 
     def __init__(self, capacity: int, device):
-        self.xyz = torch.zeros((capacity, 3), dtype=torch.float32,
-                               device=device)
+        # One scratch row past capacity takes the writes append_many drops.
+        self._storage = torch.zeros((capacity + 1, 3), dtype=torch.float32,
+                                    device=device)
         self.count = torch.zeros((), dtype=torch.int32, device=device)
+
+    @property
+    def xyz(self) -> torch.Tensor:
+        return self._storage[:-1]
 
     @staticmethod
     def create(capacity: int, device) -> "TrajectoryBuffer":
@@ -42,6 +50,22 @@ class TrajectoryBuffer:
         slot = torch.clamp(self.count, max=cap - 1).long()
         self.xyz.index_copy_(0, slot.reshape(1), pos.reshape(1, 3))
         self.count.copy_(torch.clamp(self.count + 1, max=cap))
+        return self
+
+    def append_many(self, xyz: torch.Tensor) -> "TrajectoryBuffer":
+        """Append B positions (B, 3) in order with one scatter, as B
+        ``append`` calls: past capacity the last slot takes the last
+        position, and the positions that would be overwritten go to a
+        discarded row."""
+        B = xyz.shape[0]
+        cap = self.xyz.shape[0]
+        k = torch.arange(B, device=xyz.device)
+        slots = self.count + k
+        keep = (slots < cap - 1) | (k == B - 1)
+        slots = torch.where(keep, torch.clamp(slots, max=cap - 1),
+                            torch.full_like(slots, cap))
+        self._storage.index_copy_(0, slots.long(), xyz.to(torch.float32))
+        self.count.copy_(torch.clamp(self.count + B, max=cap))
         return self
 
     def valid_mask(self) -> torch.Tensor:
@@ -86,21 +110,32 @@ def move_and_capture(tri_soa: torch.Tensor, n_tris, old_pose5: torch.Tensor,
                      intr: CameraIntrinsics, n_steps: int = 4,
                      n_azim: int = 8, n_slots: int = 6144,
                      gathering_factor: float = 0.05,
-                     sensor_range: float = 70.0
+                     sensor_range: float = 70.0,
+                     frame_ranks: Optional[Sequence[torch.Tensor]] = None,
+                     batched: bool = False
                      ) -> Tuple[PointBuffer, "TrajectoryBuffer", torch.Tensor]:
     """One lattice move: the n_steps interpolated poses rendered together
-    (one K1 launch on the card), then each substep backprojected,
-    subsampled with ``frame_scores[s - 1]`` and appended in order. Returns
-    (pc, traj, last_zbuf)."""
+    (one K1 launch on the card), then each substep backprojected and
+    subsampled with ``frame_scores[s - 1]`` (and ``frame_ranks[s - 1]``
+    for the stratified draw) and appended in order, a substep at a time or
+    (``batched``) all with one scatter. Returns (pc, traj, last_zbuf)."""
     poses = interpolate_move(old_pose5, new_pose5, n_steps, n_azim)
     zbufs, Rs, Ts = capture_depth_batch(tri_soa, n_tris, poses, intr)
+    batches = []
     for i in range(n_steps):
-        batch = backproject_sample(zbufs[i], Rs[i], Ts[i], intr,
-                                   frame_scores[i], n_slots,
-                                   gathering_factor=gathering_factor,
-                                   sensor_range=sensor_range)
-        pc.append(batch, prefix_valid=True)
-        traj.append(poses[i, :3])
+        batch = backproject_sample(
+            zbufs[i], Rs[i], Ts[i], intr, frame_scores[i], n_slots,
+            gathering_factor=gathering_factor, sensor_range=sensor_range,
+            ranks_u=None if frame_ranks is None else frame_ranks[i])
+        if batched:
+            batches.append(batch)
+        else:
+            pc.append(batch, prefix_valid=True)
+            traj.append(poses[i, :3])
+    if batched:
+        pc.append_batches(torch.stack([b.points for b in batches]),
+                          torch.stack([b.valid for b in batches]))
+        traj.append_many(poses[:, :3])
     return pc, traj, zbufs[-1]
 
 
@@ -108,11 +143,13 @@ def observe_current(tri_soa: torch.Tensor, n_tris, pose5: torch.Tensor,
                     pc: PointBuffer, frame_scores: torch.Tensor,
                     intr: CameraIntrinsics, n_slots: int = 6144,
                     gathering_factor: float = 0.05,
-                    sensor_range: float = 70.0) -> PointBuffer:
+                    sensor_range: float = 70.0,
+                    frame_ranks: Optional[torch.Tensor] = None
+                    ) -> PointBuffer:
     """The loop-start frame: the current pose rendered again and a second,
     independently sampled batch of its points appended."""
     zbuf, R, T = capture_depth(tri_soa, n_tris, pose5, intr)
     batch = backproject_sample(zbuf, R, T, intr, frame_scores, n_slots,
                                gathering_factor=gathering_factor,
-                               sensor_range=sensor_range)
+                               sensor_range=sensor_range, ranks_u=frame_ranks)
     return pc.append(batch, prefix_valid=True)

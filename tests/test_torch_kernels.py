@@ -297,7 +297,8 @@ def test_rollout_turns_tf32_off_on_card():
         seen = []
         model.conv_blocks[0].register_forward_pre_hook(
             lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
-        NBPPlanningRollout(a, model, params=p, device="cuda").run(n_poses=1)
+        NBPPlanningRollout(a, model, params=p, shared_rng=True,
+                           device="cuda").run(n_poses=1)
         assert seen and not any(seen)
         assert torch.backends.cudnn.allow_tf32 is True
         assert torch.backends.cuda.matmul.allow_tf32 is True
@@ -423,7 +424,7 @@ def test_plan_kernels_refuse_large_lattice_on_card():
             kernels.extract_path(dist, blocked, start, max_len)
 
 
-def _small_scan(device, graphs=True):
+def _small_scan(device, graphs=True, **options):
     from nextbestpath_tpu_torch.assets import (generate_scene,
                                                pack_generated_scene)
     from nextbestpath_tpu_torch.config import default_params
@@ -434,7 +435,7 @@ def _small_scan(device, graphs=True):
     p = default_params(image_height=32, image_width=56, points_per_frame=256,
                        full_pc_capacity=65536, n_gt_surface_points=2048,
                        max_path_len=32, pc2img_size=[64, 64],
-                       value_map_size=[16, 16])
+                       value_map_size=[16, 16], **options)
     a = pack_generated_scene(generate_scene("normal", seed=3), params=p)
     dev = torch.device(device)
     roll = ScanRollout(a, seeded_nbp(), params=p, device=dev,
@@ -475,3 +476,67 @@ def test_scan_rollout_captures_its_step_on_card():
                                atol=1e-3)
     np.testing.assert_allclose(g.cam_positions, c.cam_positions, atol=1e-4)
     assert g.n_points == c.n_points
+
+
+@pytest.mark.cuda
+def test_scan_rollout_capture_options_on_card():
+    """The scan with the stratified draw and the batched capture: captured
+    as CUDA graphs it equals the same step run eagerly on the card bit for
+    bit, and the CPU's within 1e-3 with the same trajectory."""
+    _need_card()
+    opts = dict(stratified_sampling=True, batched_capture=True)
+    runs = {}
+    for label, dev, graphs in (("graphs", "cuda", True),
+                               ("eager", "cuda", False), ("cpu", "cpu", False)):
+        roll = _small_scan(dev, graphs, **opts)
+        assert roll.stratified and roll.batched_capture
+        res = roll.run(n_poses=8)
+        runs[label] = (res, list(roll.regen_poses),
+                       roll.state.pc.points[:res.n_points].cpu())
+    (g, rg, pg), (e, re_, pe), (c, rc, _) = (runs[k] for k in
+                                             ("graphs", "eager", "cpu"))
+    assert g.coverage_evolution == e.coverage_evolution
+    assert np.array_equal(g.cam_positions, e.cam_positions)
+    assert g.n_points == e.n_points and torch.equal(pg, pe)
+    assert rg == re_ == rc
+    np.testing.assert_allclose(e.coverage_evolution, c.coverage_evolution,
+                               atol=1e-3)
+    np.testing.assert_allclose(e.cam_positions, c.cam_positions, atol=1e-4)
+    assert e.n_points == c.n_points
+
+
+@pytest.mark.cuda
+def test_bf16_unet_on_card():
+    """The bf16 U-Net on the card: its convolutions return bf16, its
+    outputs are f32 and within 1e-2 of the same forward on the CPU and
+    within 0.05 of the f32 forward of the same weights, folded or not."""
+    _need_card()
+    from nextbestpath_tpu_torch.models.fold import fold_bn
+    from nextbestpath_tpu_torch.models.unet import NBP, Conv
+
+    x = torch.rand(1, 64, 64, 5, generator=torch.Generator().manual_seed(0))
+    for fold in (False, True):
+        torch.manual_seed(1)
+        m32 = NBP(width=16).eval()
+        m16 = NBP(width=16, dtype=torch.bfloat16).eval()
+        m16.load_state_dict(m32.state_dict())
+        if fold:
+            m32, m16 = fold_bn(m32), fold_bn(m16)
+        outs = {}
+        for label, m, dev in (("bf16", m16, "cuda"), ("bf16_cpu", m16, "cpu"),
+                              ("f32", m32, "cuda")):
+            seen = []
+            hooks = [c.register_forward_hook(
+                lambda mod, i, o: seen.append(o.dtype))
+                for c in m.modules() if isinstance(c, Conv)]
+            with torch.no_grad():
+                outs[label] = [t.cpu() for t in m.to(dev)(x.to(dev))]
+            for h in hooks:
+                h.remove()
+            assert set(seen) == {torch.float32 if label == "f32"
+                                 else torch.bfloat16}
+        for a, b in zip(outs["bf16"], outs["bf16_cpu"]):
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-2)
+        for a, b in zip(outs["bf16"], outs["f32"]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0.05)

@@ -62,6 +62,11 @@ class JaxDraws:
         return torch.from_numpy(np.array(
             jax.random.uniform(self._key(role, step), tuple(shape))))
 
+    def uniforms(self, role, shapes, step=None):
+        keys = jax.random.split(self._key(role, step), len(shapes))
+        return [torch.from_numpy(np.array(jax.random.uniform(k, tuple(s))))
+                for k, s in zip(keys, shapes)]
+
     def randint(self, role, low, high, step=None):
         return torch.tensor(int(jax.random.randint(
             self._key(role, step), (), int(low), int(high))))
@@ -142,7 +147,8 @@ def test_rollout_matches_jax_host_rollout(difficulty, scene_seed, n_poses):
     t_model.load_state_dict(flax_to_state_dict(variables["params"],
                                                variables["batch_stats"]))
     roll = TorchRollout(t_assets, t_model, params=TC.default_params(**SMALL),
-                        draws=JaxDraws(8), max_plan_retries=8, device="cpu")
+                        draws=JaxDraws(8), shared_rng=True,
+                        max_plan_retries=8, device="cpu")
     got = roll.run(n_poses=n_poses)
 
     assert len(got.coverage_evolution) == n_poses
@@ -184,8 +190,8 @@ def test_rollout_matches_jax_host_rollout_full_width():
     t_model.load_state_dict(flax_to_state_dict(variables["params"],
                                                variables["batch_stats"]))
     roll = TorchRollout(t_assets, t_model, params=t_params,
-                        draws=JaxDraws(MAIN_PATH_SEED), max_plan_retries=8,
-                        device="cpu")
+                        draws=JaxDraws(MAIN_PATH_SEED), shared_rng=True,
+                        max_plan_retries=8, device="cpu")
     got = roll.run(n_poses=n_poses)
 
     assert len(got.coverage_evolution) == n_poses
@@ -203,8 +209,8 @@ def test_rollout_default_draws_run_and_repeat():
                                        params=params)
     torch.manual_seed(0)
     m = TorchNBP(width=8)
-    runs = [TorchRollout(t_assets, m, params=params, seed=3, device="cpu")
-            .run(n_poses=3) for _ in range(2)]
+    runs = [TorchRollout(t_assets, m, params=params, seed=3, shared_rng=True,
+                         device="cpu").run(n_poses=3) for _ in range(2)]
     assert runs[0].coverage_evolution == runs[1].coverage_evolution
     np.testing.assert_array_equal(runs[0].cam_positions, runs[1].cam_positions)
     assert all(0.0 <= c <= 1.0 for c in runs[0].coverage_evolution)
@@ -234,7 +240,8 @@ def test_rollout_turns_tf32_off():
         seen = []
         model.conv_blocks[0].register_forward_pre_hook(
             lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
-        TorchRollout(a, model, params=params, device="cpu").run(n_poses=1)
+        TorchRollout(a, model, params=params, shared_rng=True,
+                     device="cpu").run(n_poses=1)
         assert seen and not any(seen)
         assert torch.backends.cudnn.allow_tf32 is True
         assert torch.backends.cuda.matmul.allow_tf32 is True
@@ -258,13 +265,16 @@ def test_cuda_requested_without_card_raises():
 
 def test_port_imports_nothing_of_jax():
     """Import the port (the scan rollout, BN folding, the planner, the
-    profiler and bench_torch.py among it) and render a tiny frame with jax,
-    flax and the JAX package blocked from import."""
+    profiler, the checkpoint reader, the held-out recipe, the random walk,
+    bench_torch.py and test_nbp_planning_torch.py among it), render a tiny
+    frame and read the committed checkpoint with jax, flax, msgpack and the
+    JAX package blocked from import."""
     code = r"""
 import sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "nextbestpath_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
+                                  "nextbestpath_tpu"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import torch
@@ -280,13 +290,19 @@ from nextbestpath_tpu_torch.models import fold
 from nextbestpath_tpu_torch.planning import grid_paths
 from nextbestpath_tpu_torch.ops import scatter2d
 from nextbestpath_tpu_torch import profile_rollout
+from nextbestpath_tpu_torch.utils import checkpoint
+from nextbestpath_tpu_torch.eval import heldout, random_walk
 import bench_torch
+import test_nbp_planning_torch
 a = pack_generated_scene(generate_scene("simple", seed=1))
 R, T = get_camera_RT(torch.tensor([[7.5, 3.3, 7.5]]), torch.tensor([[0.0, 0.0]]))
 z = render_depth(tris_to_soa(torch.from_numpy(a.tris)), a.n_tris, R[0], T[0],
                  CameraIntrinsics(8, 12))
 assert (z > 0).all(), z
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "nextbestpath_tpu")]
+v, _, epoch, _ = checkpoint.load_checkpoint("weights/nbp/nbp_best_val.ckpt")
+assert epoch == 4 and len(v["params"]) > 20
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "flax", "msgpack", "nextbestpath_tpu")]
 assert not bad, bad
 print("ok")
 """

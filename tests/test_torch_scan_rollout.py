@@ -110,6 +110,25 @@ def test_scan_matches_jax_scan_rollout(flax_model, difficulty, scene_seed,
     assert max(got.coverage_evolution[1:]) > got.coverage_evolution[0]
 
 
+def test_scan_capture_options_match_jax(flax_model):
+    """The stratified draw and the batched capture together: the port's
+    scan against the JAX scan with ``stratified_sampling`` and
+    ``batched_capture`` on (at 32x56 and 256 points a frame a stratum is
+    7 pixels, so the stratified draw applies), 8 poses of simple/4."""
+    model, variables = flax_model
+    opts = dict(SMALL, stratified_sampling=True, batched_capture=True)
+    params = default_params(**opts)
+    assets = pack_generated_scene(generate_scene("simple", seed=4),
+                                  params=params)
+    want = JaxScan(assets, model, variables, params=params).run(n_poses=8,
+                                                                seed=8)
+    roll = ScanRollout(_torch_assets("simple", 4), _torch_model(variables),
+                       params=TC.default_params(**opts), draws=JaxDraws(8),
+                       device="cpu")
+    assert roll.stratified and roll.batched_capture
+    _same_rollout(roll.run(n_poses=8), want)
+
+
 def test_scan_matches_port_host_rollout(flax_model):
     """The scan and the port's host rollout (max_plan_retries=4, the scan's)
     with the same JAX draws take the same decisions on simple/4."""
@@ -117,7 +136,8 @@ def test_scan_matches_port_host_rollout(flax_model):
     params = TC.default_params(**SMALL)
     assets = _torch_assets("simple", 4)
     host = TorchHost(assets, _torch_model(variables), params=params,
-                     draws=JaxDraws(8), max_plan_retries=4, device="cpu")
+                     draws=JaxDraws(8), shared_rng=True, max_plan_retries=4,
+                     device="cpu")
     scan = ScanRollout(assets, _torch_model(variables), params=params,
                        fold_bn=False, draws=JaxDraws(8), device="cpu")
     _same_rollout(scan.run(n_poses=8), host.run(n_poses=8))
@@ -133,10 +153,14 @@ def test_scan_default_draws_repeat_and_refuse_options():
     assert a.coverage_evolution == b.coverage_evolution
     np.testing.assert_array_equal(a.cam_positions, b.cam_positions)
     assert roll.state.pc.count.device.type == "cpu"
+    # The capture options no longer refuse: each runs and repeats.
     for opt in ("stratified_sampling", "batched_capture"):
         p = TC.default_params(**SMALL, **{opt: True})
-        with pytest.raises(NotImplementedError, match=opt):
-            ScanRollout(assets, TorchNBP(width=4), params=p, device="cpu")
+        r = ScanRollout(assets, TorchNBP(width=4), params=p, device="cpu")
+        assert r.stratified == (opt == "stratified_sampling")
+        assert r.batched_capture == (opt == "batched_capture")
+        c, d = r.run(n_poses=2, seed=5), r.run(n_poses=2, seed=5)
+        assert c.coverage_evolution == d.coverage_evolution
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ScanRollout(assets, TorchNBP(width=4), params=params)
@@ -285,8 +309,31 @@ def test_bench_torch_prints_its_line():
     assert line["min"] <= line["value"] <= line["max"]
     assert line["vs_baseline"] == pytest.approx(line["value"] / 0.5)
     assert 0.0 <= line["coverage_final"] <= 1.0 and line["auc"] > 0
+    assert (line["dtype"], line["stratified"], line["batched_capture"]) == (
+        "float32", False, False)
     if not torch.cuda.is_available():
         assert bench_torch.main(["--quick"]) == 2
+
+
+@pytest.mark.parametrize("flags", [["--dtype", "bfloat16"], ["--stratified"],
+                                   ["--batched-capture"]])
+def test_bench_torch_options(flags):
+    """The flags beside bench.py's reach the rollout and the line: at
+    --quick (64x114 frames, 1024 points a frame) a stratum is 8 pixels and
+    the stratified draw applies."""
+    sys.path.insert(0, REPO)
+    import bench_torch
+
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = bench_torch.main(["--device", "cpu", "--quick", "--poses", "2",
+                               "--warmup-poses", "1"] + flags)
+    assert rc == 0
+    line = json.loads(out.getvalue().strip().splitlines()[0])
+    assert line["dtype"] == ("bfloat16" if "bfloat16" in flags else "float32")
+    assert line["stratified"] == ("--stratified" in flags)
+    assert line["batched_capture"] == ("--batched-capture" in flags)
+    assert 0.0 <= line["coverage_final"] <= 1.0 and line["auc"] > 0
 
 
 @pytest.mark.slow

@@ -78,8 +78,12 @@ def test_point_buffer_append_matches():
         np.testing.assert_array_equal(pt.points.numpy(), np.asarray(pj.points))
         np.testing.assert_array_equal(pt.valid_mask().numpy(),
                                       np.asarray(pj.valid_mask()))
-    with pytest.raises(NotImplementedError):
-        pt.append(TS.FramePoints(_t(pts), _t(valid)), prefix_valid=False)
+    # The compacting append takes a prefix-valid batch to the same layout.
+    pj = pj.append(JS.FramePoints(jnp.asarray(pts), jnp.asarray(valid)),
+                   prefix_valid=False)
+    pt.append(TS.FramePoints(_t(pts), _t(valid)), prefix_valid=False)
+    assert int(pt.count) == int(pj.count)
+    np.testing.assert_array_equal(pt.points.numpy(), np.asarray(pj.points))
 
 
 def test_trajectory_buffer_matches():

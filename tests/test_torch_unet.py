@@ -67,7 +67,7 @@ def test_full_width_names_and_shapes_map():
     n_flax = sum(int(np.prod(s.shape)) for s in
                  jax.tree_util.tree_leaves(shapes["params"]))
     n_port = sum(p.numel() for p in tm.parameters())
-    assert n_port == n_flax - 2  # log_vars is not part of the port's model
+    assert n_port == n_flax  # log_vars included, as in the flax module
 
 
 def test_convert_sorts_by_numeric_suffix():
@@ -80,4 +80,4 @@ def test_convert_sorts_by_numeric_suffix():
     k10 = params["ConvBlock_10"]["TorchConv_0"]["Conv_0"]["kernel"]
     np.testing.assert_array_equal(sd["conv_blocks.10.conv0.weight"].numpy(),
                                   k10.transpose(3, 2, 0, 1))
-    assert "log_vars" in params and not any("log_vars" in k for k in sd)
+    np.testing.assert_array_equal(sd["log_vars"].numpy(), params["log_vars"])
