@@ -57,6 +57,23 @@ Phases, each of which raises on failure (exit code != 0):
    6 poses, counts set to 0 just before it (K2 once, K1 1 + 1 a pose, K3
    once a pose).
 
+8. training on the card (``train/``, what ``train_nbp_torch.py`` runs):
+   ``collect_trajectory`` on the main path's scene with a seeded
+   full-width NBP for 12 poses, counts set to 0 just before it and read
+   just after (K2 once, K1 1 + 2 a pose, K3 once a pose, the planner
+   kernels once a plan), coverage rising, 256x256 experiences, the U-Net's
+   running statistics unmoved; a dataset of 56 of its experiences through
+   ``train_epoch_ds`` (7 micro steps of 8, one AdamW step): the parameters
+   unchanged through the 7th micro step's forward and changed after it,
+   the losses finite, cuDNN's TF32 off in the forward, the backward and
+   the optimizer step and the caller's flags back after, with the ms of a
+   micro step (forward and backward) and of the optimizer step, steady
+   (a second epoch), and the peak memory; one accumulation cycle of
+   NBP(width=8) at 64x64 on the card against the CPU (f32: the losses and
+   batch statistics, f64: the parameters, within rtol 1e-4); and
+   ``run_training_nbp`` for 2 epochs of 8 poses on the main path's scene
+   into a temporary directory, its checkpoint read back equal.
+
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
 
@@ -73,6 +90,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -480,6 +498,210 @@ def cli_phase(params, f32_model, small, s_assets, dev):
     return {"cli": cli, "random_walk": walk}
 
 
+def train_phase(params, assets, dev, smi):
+    """Phase 8 (module docstring). Returns the collection's launches by
+    kernel."""
+    import random
+    import tempfile
+
+    import numpy as np
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.nbp_planning import MAIN_PATH_SEED, seeded_nbp
+    from nextbestpath_tpu_torch.models.unet import NBP, as_float64
+    from nextbestpath_tpu_torch.train import train_nbp as TT
+    from nextbestpath_tpu_torch.train.collection import collect_trajectory
+    from nextbestpath_tpu_torch.train.driver import (run_training_nbp,
+                                                     seeded_train_model)
+    from nextbestpath_tpu_torch.train.replay import Experience, ReplayDB
+    from nextbestpath_tpu_torch.utils.checkpoint import load_nbp
+
+    class CountingDraws(TorchDraws):
+        def __init__(self, seed):
+            super().__init__(seed, dev)
+            self.groups = {}
+
+        def begin_group(self, role):
+            self.groups[role] = self.groups.get(role, 0) + 1
+
+    t_phase = time.perf_counter()
+    model = seeded_nbp().to(dev)
+    # Collection: a 2-pose warm-up (cuDNN's first calls), then 12 poses.
+    collect_trajectory(assets, model, ReplayDB(), params=params, seed=1,
+                       n_poses=2, device=dev)
+    n_poses = 12
+    stats0 = {k: b.clone() for k, b in model.named_buffers()}
+    db = ReplayDB()
+    draws = CountingDraws(MAIN_PATH_SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cov = collect_trajectory(assets, model, db, params=params, draws=draws,
+                             n_poses=n_poses, device=dev)
+    torch.cuda.synchronize()
+    collect_ms = (time.perf_counter() - t0) / max(len(cov), 1) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    plans = draws.groups.get("goal", 0)
+    log(f"phase 8 collection simple/{MAIN_PATH_SEED}, {len(cov)} poses, {plans} plans: "
+        f"{collect_ms:.2f} ms a collected pose [{smi}], coverage "
+        f"{[round(c, 4) for c in cov]}, {len(db)} experiences, launches {launches}")
+    rises("collection", cov)
+    if len(cov) != n_poses:
+        raise AssertionError(f"collection stopped after {len(cov)} of {n_poses} poses")
+    expect_launches("collection", launches, {
+        "ray_hits": 1, "ray_hits_pinhole": 1 + 2 * n_poses, "min_sq_dists": n_poses,
+        "bfs_field": plans, "extract_path": plans})
+    if plans < 1 or not db.entries:
+        raise AssertionError("the collection planned no path or mined no label")
+    e = db.entries[0]
+    if e.model_input.shape != (5, 256, 256) or e.gt_layout.shape != (256, 256) \
+            or not any(x.gt_layout.any() for x in db.entries):
+        raise AssertionError(f"experience shapes {e.model_input.shape}, {e.gt_layout.shape}")
+    if not all(torch.equal(b, stats0[k]) for k, b in model.named_buffers()):
+        raise AssertionError("the collection moved the U-Net's running statistics")
+
+    # Training at full width: 56 entries, 7 micro steps of 8, one AdamW step.
+    data = (db.entries * (56 // len(db.entries) + 1))[:56]
+    state = TT.init_train_state(model)
+    ds, _ = TT.build_device_dataset(data, dev)
+    w0 = model.final1.weight.detach().clone()
+    marks, flags_seen, same = [], [], []
+
+    def mark(tag):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((tag, ev))
+
+    saved = []  # bytes the forward leaves allocated: the saved activations
+
+    def on_forward(*_):
+        mark("fwd")
+        flags_seen.append(torch.backends.cudnn.allow_tf32)
+        same.append(torch.equal(model.final1.weight, w0))
+        saved.append(-torch.cuda.memory_allocated())
+
+    def on_forward_end(*_):
+        mark("fwd_end")
+        saved[-1] += torch.cuda.memory_allocated()
+
+    def on_backward(_):
+        flags_seen.append(torch.backends.cudnn.allow_tf32)
+
+    def on_step(*_):
+        mark("opt")
+        flags_seen.append(torch.backends.cudnn.allow_tf32)
+
+    def on_step_end(*_):
+        mark("opt_end")
+
+    hooks = [model.register_forward_pre_hook(on_forward),
+             model.register_forward_hook(on_forward_end),
+             model.conv_blocks[0].conv0.weight.register_hook(on_backward),
+             state.optimizer.register_step_pre_hook(on_step),
+             state.optimizer.register_step_post_hook(on_step_end)]
+    caller = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        losses = []
+        for epoch in range(2):  # the second is the steady one, timed
+            if epoch == 1:
+                marks.clear()
+            _, loss = TT.train_epoch_ds(state, ds, list(range(56)), random.Random(epoch))
+            losses.append(loss)
+            if epoch == 0:
+                changed = not torch.equal(model.final1.weight, w0)
+                first_same = list(same)
+        flags_after = (torch.backends.cudnn.allow_tf32,
+                       torch.backends.cuda.matmul.allow_tf32)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = caller
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    starts = [ev for tag, ev in marks if tag == "fwd"]
+    opt_start = next(ev for tag, ev in marks if tag == "opt")
+    opt_end = next(ev for tag, ev in marks if tag == "opt_end")
+    ends = [ev for tag, ev in marks if tag == "fwd_end"]
+    micro_ms = [a.elapsed_time(b) for a, b in zip(starts, starts[1:] + [opt_start])]
+    fwd_ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+    opt_ms = opt_start.elapsed_time(opt_end)
+    log(f"phase 8 training, full-width NBP, 256x256x5, 7 micro steps of 8 a step [{smi}]: "
+        f"{sum(micro_ms) / len(micro_ms):.2f} ms a micro step (forward + backward; "
+        f"{[round(m, 2) for m in micro_ms]}; forward {sum(fwd_ms) / len(fwd_ms):.2f}, the "
+        f"rest backward and accumulation), optimizer step {opt_ms:.2f} ms, peak memory "
+        f"{peak:.2f} GiB (saved activations {max(saved) / 2 ** 30:.2f} GiB), mean losses "
+        f"{losses}, optimizer steps "
+        f"{int(state.optimizer.state[state.params[0]]['step'])}")
+    log(f"  [{smi}] parameters unchanged at the forward of micro steps 1-7 {first_same[:7]}, "
+        f"changed after the 7th {changed}; TF32 seen in the step {set(flags_seen)}, "
+        f"caller's flags after {flags_after}")
+    if first_same[:7] != [True] * 7 or not changed or state.mini_step != 0:
+        raise AssertionError("the accumulation did not emit on the 7th micro step only")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    if any(flags_seen) or flags_after != (True, True):
+        raise AssertionError("TF32 was on inside the training step, or the flags were lost")
+    del ds, state
+
+    # One accumulation cycle of NBP(width=8) at 64x64, card against CPU.
+    small_data = [Experience(
+        model_input=e.model_input[:, ::4, ::4].copy(), gt_layout=e.gt_layout[::4, ::4].copy(),
+        pixels=e.pixels % np.array([8, 16, 16], np.int32), gains=e.gains, pose_i=12)
+        for e in db.entries[:6]]
+    small_data = (small_data * 6)[:6]
+    out = {}
+    for dtype in ("f32", "f64"):
+        for d in ("card", "cpu"):
+            m = seeded_train_model(1, width=8)
+            if dtype == "f64":
+                as_float64(m)
+            where = dev if d == "card" else torch.device("cpu")
+            m.to(where)
+            st = TT.init_train_state(m, accumulation_steps=3)
+            sds, _ = TT.build_device_dataset(small_data, where)
+            _, loss = TT.train_epoch_ds(st, sds, list(range(6)), random.Random(0),
+                                        micro_batch=2)
+            out[dtype, d] = (loss, {k: v.cpu() for k, v in m.state_dict().items()})
+    worst = {}
+    for dtype in ("f32", "f64"):
+        (l_g, sd_g), (l_c, sd_c) = out[dtype, "card"], out[dtype, "cpu"]
+        keys = [k for k in sd_c if "running" in k or (dtype == "f64" and "num_batches" not in k)]
+        errs = [float(((sd_g[k] - sd_c[k]).abs() / (sd_c[k].abs().max() + 1e-30)).max())
+                for k in keys]
+        worst[dtype] = (abs(l_g - l_c) / abs(l_c), max(errs))
+    log(f"phase 8 card vs CPU [{smi}], one cycle of NBP(width=8) at 64x64 (3 micro steps of 2): "
+        f"f32 loss rel err {worst['f32'][0]:.2e}, batch stats {worst['f32'][1]:.2e}; "
+        f"f64 loss {worst['f64'][0]:.2e}, parameters and stats {worst['f64'][1]:.2e}")
+    if max(max(v) for v in worst.values()) > 1e-4:
+        raise AssertionError("the card's training step disagrees with the CPU's")
+
+    # The epoch driver, 2 epochs of 8 poses, into a temporary directory.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        st = run_training_nbp([assets], params=params, epochs=2, n_poses=8,
+                              weights_dir=os.path.join(tmp, "w"),
+                              log_dir=os.path.join(tmp, "log"), seed=MAIN_PATH_SEED,
+                              verbose=False, device=dev)
+        t_drv = time.perf_counter() - t0
+        names = sorted(os.listdir(os.path.join(tmp, "w")))
+        back = NBP()
+        epoch, _ = load_nbp(os.path.join(tmp, "w", "nbp_best_val.ckpt"), back)
+        equal = all(torch.equal(v.cpu(), back.state_dict()[k])
+                    for k, v in st.model.state_dict().items())
+        with open(os.path.join(tmp, "log", "nbp_loss.json")) as f:
+            loss_log = json.load(f)
+    log(f"phase 8 driver [{smi}]: run_training_nbp, 2 epochs of 8 poses, {t_drv:.2f} s; wrote "
+        f"{names}; checkpoint epoch {epoch} read back equal {equal}; log {loss_log}")
+    if not equal or epoch != 1 or names != ["nbp_best_val.ckpt"]:
+        raise AssertionError("the driver's checkpoint did not read back equal")
+    log(f"phase 8 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", default=None,
@@ -785,6 +1007,9 @@ def main() -> int:
 
     # 7. The evaluation CLI's path, the capture options and the baseline.
     by_path = cli_phase(params, model, small, s_assets, dev)
+
+    # 8. Training: collection, the training step, the driver.
+    by_path["train"] = train_phase(params, assets, dev, smi)
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]

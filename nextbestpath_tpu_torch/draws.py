@@ -25,6 +25,10 @@ buffer slot), ``obs``, one ``plan`` group per planning attempt, ``rot`` or
 ``rot2`` when taken, and ``move``. The role names the group; it does not
 select a key.
 
+The training collection (``train/collection.py``) takes the sequential
+schedule, with the Boltzmann pick of its first candidate as one ``goal``
+group served by ``gumbel`` (``jax.random.categorical``'s noise).
+
 In both schedules ``step`` folds a substep's index into its group's key
 (``fold_in(key, s)``), and ``uniforms`` serves several draws from the split
 of one key (``k1, k2 = split(key)``, the stratified frame draw).
@@ -71,6 +75,14 @@ class TorchDraws:
     def uniforms(self, role: str, shapes: Sequence[Sequence[int]],
                  step: Optional[int] = None) -> List[torch.Tensor]:
         return [self.uniform(role, s, step) for s in shapes]
+
+    def gumbel(self, role: str, shape: Sequence[int],
+               step: Optional[int] = None) -> torch.Tensor:
+        """Standard Gumbel noise -log(-log(u)), u uniform in [tiny, 1),
+        as ``jax.random.gumbel`` draws it."""
+        tiny = torch.finfo(torch.float32).tiny
+        u = self.uniform(role, shape, step).clamp(min=tiny)
+        return -torch.log(-torch.log(u))
 
     def randint(self, role: str, low: IntLike, high: IntLike,
                 step: Optional[int] = None) -> torch.Tensor:

@@ -78,13 +78,14 @@ def _module_names(sd: Mapping[str, torch.Tensor], group: str):
     return sorted(idx)
 
 
-def state_dict_to_flax(sd: Mapping[str, torch.Tensor]
-                       ) -> Tuple[Dict, Dict]:
-    """(params, batch_stats) with numpy f32 leaves, in flax's names, from
-    an unfolded ``models.unet.NBP`` state_dict: the inverse of
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
+                       dtype: np.dtype = np.float32) -> Tuple[Dict, Dict]:
+    """(params, batch_stats) with numpy leaves of ``dtype``, in flax's
+    names, from an unfolded ``models.unet.NBP`` state_dict (or a dict of
+    its gradients under the same names): the inverse of
     ``flax_to_state_dict``."""
     def arr(key):
-        return sd[key].detach().cpu().numpy().astype(np.float32)
+        return sd[key].detach().cpu().numpy().astype(dtype)
 
     def conv(src):
         return {"Conv_0": {

@@ -7,9 +7,14 @@ layouts:
     forward(x (B, S, S, 5)) -> (value_map (B, S/4, S/4, 8),
                                 obstacle_map (B, S, S, 1))
 
-BatchNorm uses eps 1e-5 and runs in eval mode on the planning path; flax
-momentum 0.9 is torch momentum 0.1. Upsampling is nearest 2x, as the JAX
-UpConv's ``jax.image.resize(..., "nearest")``.
+BatchNorm uses eps 1e-5 and runs in eval mode on the planning path. In
+train mode (``model.train()``, the trainer's) it normalises by the batch
+statistics and updates the running ones as flax does: flax momentum 0.9
+(torch momentum 0.1) on the *biased* batch variance, where
+``nn.BatchNorm2d`` would take the unbiased one (``BatchNorm`` below).
+Upsampling is nearest 2x, as the JAX UpConv's
+``jax.image.resize(..., "nearest")``. ``nbp_loss`` is the two-task
+training loss.
 
 Submodules are kept in the order flax numbers its auto-named modules
 (``ConvBlock_0..10``, ``UpConv_0..5``, ``AttentionGate_0..5``), so that
@@ -24,18 +29,20 @@ bf16; BatchNorm takes its input to f32 and returns f32; both outputs are
 cast to f32. With the BatchNorms folded (``models/fold.py``) the
 activations therefore stay bf16 through ReLU, pooling and the gates. The
 casts are explicit, not ``torch.autocast``, so the CPU and the card give
-the same dtypes.
+the same dtypes. A model made f64 (``as_float64``) stays f64 throughout.
 
 Numerics: ``NBP.forward`` runs with ``torch.backends.cudnn.allow_tf32``
 off and puts the caller's setting back when it returns, so its f32
 convolutions on the card run in full f32 as the reference's do (it has no
-matmul).
+matmul). Autograd runs the backward convolutions later, outside the
+forward, so the trainer puts its whole step under ``cudnn_f32`` too
+(``train/train_nbp.py``).
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -53,8 +60,26 @@ def cudnn_f32() -> Iterator[None]:
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) whose train mode updates
+    the running statistics as flax's ``BatchNorm(momentum=0.9)``:
+    ``running = 0.9 * running + 0.1 * batch`` with the biased batch
+    variance. Eval mode is ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias,
+                         training=True, eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean * self.momentum)
+            self.running_var.mul_(keep).add_(var * self.momentum)
+        return y
 
 
 class Conv(nn.Conv2d):
@@ -73,10 +98,17 @@ class Conv(nn.Conv2d):
                         padding=self.padding)
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _norm(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm in f32 (flax ``BatchNorm(dtype=float32)``); a folded one
-    (``nn.Identity``) leaves x in the convolution's dtype."""
-    return x if isinstance(bn, nn.Identity) else bn(x.float())
+    """BatchNorm in at least f32 (flax ``BatchNorm(dtype=float32)``; an
+    f64 model stays f64); a folded one (``nn.Identity``) leaves x in the
+    convolution's dtype."""
+    if isinstance(bn, nn.Identity):
+        return x
+    return bn(_at_least_f32(x))
 
 
 class ConvBlock(nn.Module):
@@ -85,9 +117,9 @@ class ConvBlock(nn.Module):
     def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
         self.conv0 = Conv(cin, cout, 3, dtype)
-        self.bn0 = _bn(cout)
+        self.bn0 = BatchNorm(cout)
         self.conv1 = Conv(cout, cout, 3, dtype)
-        self.bn1 = _bn(cout)
+        self.bn1 = BatchNorm(cout)
 
     def forward(self, x):
         x = F.relu(_norm(self.bn0, self.conv0(x)))
@@ -100,7 +132,7 @@ class UpConv(nn.Module):
     def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
         self.conv = Conv(cin, cout, 3, dtype)
-        self.bn = _bn(cout)
+        self.bn = BatchNorm(cout)
 
     def forward(self, x):
         x = F.interpolate(x, scale_factor=2, mode="nearest")
@@ -113,11 +145,11 @@ class AttentionGate(nn.Module):
     def __init__(self, cg: int, cx: int, f_int: int, dtype=torch.float32):
         super().__init__()
         self.w_g = Conv(cg, f_int, 1, dtype)
-        self.bn_g = _bn(f_int)
+        self.bn_g = BatchNorm(f_int)
         self.w_x = Conv(cx, f_int, 1, dtype)
-        self.bn_x = _bn(f_int)
+        self.bn_x = BatchNorm(f_int)
         self.psi = Conv(f_int, 1, 1, dtype)
-        self.bn_psi = _bn(1)
+        self.bn_psi = BatchNorm(1)
 
     def forward(self, g, x):
         a = F.relu(_norm(self.bn_g, self.w_g(g))
@@ -186,5 +218,50 @@ class NBP(nn.Module):
         e2 = up[5](e3)
         e2 = cb[10](torch.cat([ag[5](e2, x1), e2], dim=1))
         out2 = torch.sigmoid(self.final2(e2))
-        return (out1.float().permute(0, 2, 3, 1),
-                out2.float().permute(0, 2, 3, 1))
+        return (_at_least_f32(out1).permute(0, 2, 3, 1),
+                _at_least_f32(out2).permute(0, 2, 3, 1))
+
+
+def as_float64(model: NBP) -> NBP:
+    """``model``, in place, computing in f64 throughout: parameters, running
+    statistics and every convolution. The checks take it as the reference
+    evaluation of a training step, whose f32 gradients are ill-conditioned
+    (BatchNorm on batch statistics)."""
+    model.double()
+    for m in model.modules():
+        if isinstance(m, Conv):
+            m.compute_dtype = torch.float64
+    return model
+
+
+def nbp_loss(log_vars: torch.Tensor, pred_values: torch.Tensor,
+             target_values: torch.Tensor, pred_layout: torch.Tensor,
+             target_layout: torch.Tensor,
+             value_weight: Optional[torch.Tensor] = None,
+             sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Homoscedastic two-task loss (JAX ``nbp_loss``):
+    MSE(values) / (2 sigma1^2) + lv0 + BCE(layout) / sigma2^2 + lv1, with
+    sigma_i^2 = exp(2 lv_i) and the layout clipped to [1e-7, 1 - 1e-7].
+    ``value_weight`` masks padded value-pixel slots; ``sample_weight`` (B,)
+    masks padded batch rows in the layout BCE."""
+    sigma1_sq = torch.exp(2.0 * log_vars[0])
+    sigma2_sq = torch.exp(2.0 * log_vars[1])
+    se = (pred_values - target_values) ** 2
+    if value_weight is not None:
+        mse = torch.sum(se * value_weight) / torch.clamp(
+            torch.sum(value_weight), min=1.0)
+    else:
+        mse = torch.mean(se)
+    eps = 1e-7
+    p = torch.clamp(pred_layout, eps, 1.0 - eps)
+    bce_map = -(target_layout * torch.log(p)
+                + (1.0 - target_layout) * torch.log(1.0 - p))
+    if sample_weight is not None:
+        per_sample = bce_map.reshape(bce_map.shape[0], -1).mean(dim=-1)
+        bce = torch.sum(per_sample * sample_weight) / torch.clamp(
+            torch.sum(sample_weight), min=1.0)
+    else:
+        bce = torch.mean(bce_map)
+    loss1 = mse / (2.0 * sigma1_sq) + log_vars[0]
+    loss2 = bce / sigma2_sq + log_vars[1]
+    return loss1 + loss2

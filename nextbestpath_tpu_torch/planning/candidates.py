@@ -1,5 +1,7 @@
 """Vectorised candidate-goal scoring (port of
-``nextbestpath_tpu/planning/candidates.py``, test-time scoring)."""
+``nextbestpath_tpu/planning/candidates.py``): test-time scoring, and the
+training collection's scoring with its Boltzmann-sampled first
+candidate."""
 
 from __future__ import annotations
 
@@ -52,3 +54,34 @@ def score_candidates_test(positions: torch.Tensor, cam_xyz: torch.Tensor,
                                                pix256[..., 1]]
     ok = in64 & in256 & near_obs & ~banned_positions
     return torch.where(ok, value - 10.0 * sel, torch.full_like(value, NEG))
+
+
+def score_candidates_train(positions: torch.Tensor, cam_xyz: torch.Tensor,
+                           value_map: torch.Tensor, current_lh,
+                           value_map_size: int = 64,
+                           grid_range: Tuple[float, float] = (-40.0, 40.0)
+                           ) -> torch.Tensor:
+    """(L, H) training-collection scores: the best orientation's value for
+    every position inside the value map except the current one (index
+    ``current_lh`` (l, h)); NEG elsewhere."""
+    L, H = positions.shape[:2]
+    pix64, in64 = _project_lattice(positions, cam_xyz, value_map_size,
+                                   grid_range)
+    value = value_map.amax(dim=-1)[pix64[..., 0], pix64[..., 1]]
+    is_current = torch.zeros((L, H), dtype=torch.bool,
+                             device=positions.device)
+    is_current[int(current_lh[0]), int(current_lh[1])] = True
+    return torch.where(in64 & ~is_current, value,
+                       torch.full_like(value, NEG))
+
+
+def boltzmann_first(scores: torch.Tensor, gumbel: torch.Tensor,
+                    beta: float = 0.5) -> torch.Tensor:
+    """Flat index of the Boltzmann-sampled first candidate: a draw from
+    softmax(score / beta) over the admissible scores, taken as
+    ``jax.random.categorical`` takes it, argmax(gumbel + logits) with the
+    Gumbel noise ``gumbel`` (L*H,) given (ties to the lower index)."""
+    flat = scores.reshape(-1)
+    logits = torch.where(flat > NEG / 2, flat / beta,
+                         torch.full_like(flat, -float("inf")))
+    return torch.argmax(gumbel.to(logits.device) + logits)

@@ -1,7 +1,7 @@
 """Where a pose's time goes: a planning rollout under ``torch.profiler``.
 
     python3 -m nextbestpath_tpu_torch.profile_rollout [--poses 6]
-        [--rollout host|scan|cli]
+        [--rollout host|scan|cli|train]
 
 Runs the main path that ``chip_smoke.py`` drives
 (``eval.nbp_planning.main_path_setup``: procgen ``simple`` seed 8, default
@@ -27,6 +27,15 @@ graphs' device time by stage. Prints, a run:
   and blocking copies), against the wall: the rest of the host's time is
   dispatch;
 * the operations with the most device time. Needs a CUDA card.
+
+``--rollout train`` profiles the trainer's step instead (what
+``chip_smoke.py`` phase 8 times): the main path's scene collected for 12
+poses with the full-width f32 NBP, 56 of its experiences staged, one
+accumulation cycle (7 micro steps of 8 and the AdamW step) as warm-up,
+then ``--poses`` cycles profiled; the ranges are the step's (forward,
+backward, accumulate, optimizer), with their host time only (autograd
+launches the backward's kernels from its own thread, outside them); the
+split of the device time is by operation.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ from .eval.nbp_planning import (MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES,
 from .eval.scan_rollout import ScanRollout
 
 STAGES = ("coverage", "observe", "projections", "unet", "plan", "move", "pre",
-          "post")
+          "post", "forward", "backward", "accumulate", "optimizer")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
 
@@ -120,6 +129,40 @@ def _runs(kind: str):
     return [("scan graphs", run(True)), ("scan eager", run(False))]
 
 
+class _Cycles:
+    """The result of ``n`` training cycles, in the shape ``_profile``
+    prints: one 'pose' a cycle, its mean loss as the 'coverage'."""
+
+    def __init__(self, losses):
+        self.coverage_evolution = losses
+
+
+def _train_runs():
+    """[("train", run(n_cycles))], warmed up by one cycle."""
+    import random
+
+    from .train import train_nbp as TT
+    from .train.collection import collect_trajectory
+    from .train.replay import ReplayDB
+
+    params, assets, model = main_path_setup()
+    dev = torch.device("cuda")
+    model = model.to(dev)
+    db = ReplayDB()
+    collect_trajectory(assets, model, db, params=params, seed=MAIN_PATH_SEED,
+                       n_poses=12, device=dev)
+    data = (db.entries * (56 // len(db.entries) + 1))[:56]
+    state = TT.init_train_state(model)
+    ds, _ = TT.build_device_dataset(data, dev)
+    rng = random.Random(0)
+
+    def run(n):
+        return _Cycles([TT.train_epoch_ds(state, ds, list(range(56)), rng)[1]
+                        for _ in range(n)])
+    run(1)
+    return [("train cycle", run)]
+
+
 def _profile(label: str, run, n: int) -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -133,11 +176,13 @@ def _profile(label: str, run, n: int) -> None:
     events = prof.events()
     kernels, stage_spans = _device_spans(events)
     busy = _union_us(kernels) / 1e6
-    print(f"{label} rollout, profiled {n} poses: {wall / n * 1e3:.2f} ms/pose "
-          f"(under the profiler), device busy {busy / n * 1e3:.3f} ms/pose, "
+    u = "cycle" if label.startswith("train") else "pose"
+    print(f"{label}{' rollout' if u == 'pose' else ''}, profiled {n} {u}s: {wall / n * 1e3:.2f} ms/{u} "
+          f"(under the profiler), device busy {busy / n * 1e3:.3f} ms/{u}, "
           f"{busy / wall:.3f} of the wall; the same run without the profiler "
-          f"{plain_wall / n * 1e3:.2f} ms/pose, of which the device busy time is "
-          f"{busy / plain_wall:.3f}; coverage {res.coverage_evolution}")
+          f"{plain_wall / n * 1e3:.2f} ms/{u}, of which the device busy time is "
+          f"{busy / plain_wall:.3f}; {'loss' if u == 'cycle' else 'coverage'} "
+          f"{res.coverage_evolution}")
     host = collections.defaultdict(lambda: [0, 0.0])
     syncs = collections.defaultdict(lambda: [0, 0.0])
     for e in events:
@@ -150,13 +195,17 @@ def _profile(label: str, run, n: int) -> None:
     for name in STAGES:
         if name in host:
             k, host_us = host[name]
-            dev_us = _stage_device_us(kernels, stage_spans.get(name, []))
-            print(f"  stage {name}: {k / n:.2f} a pose, host {host_us / n / 1e3:.3f} "
-                  f"ms/pose, device {dev_us / n / 1e3:.3f} ms/pose")
+            # Autograd launches the backward from its own thread, outside
+            # the step's ranges: a training range's device time is not its.
+            dev = "" if u == "cycle" else (
+                f", device {_stage_device_us(kernels, stage_spans.get(name, [])) / n / 1e3:.3f}"
+                f" ms/{u}")
+            print(f"  stage {name}: {k / n:.2f} a {u}, host {host_us / n / 1e3:.3f} "
+                  f"ms/{u}{dev}")
     blocked = sum(v[1] for v in syncs.values()) / 1e6
-    print(f"  host blocked in syncs {blocked / n * 1e3:.3f} ms/pose "
+    print(f"  host blocked in syncs {blocked / n * 1e3:.3f} ms/{u} "
           f"({blocked / wall:.3f} of the wall; "
-          + ", ".join(f"{k} {v[0] / n:.1f} a pose" for k, v in syncs.items())
+          + ", ".join(f"{k} {v[0] / n:.1f} a {u}" for k, v in syncs.items())
           + f"); device idle {1 - busy / wall:.3f} of the wall")
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=25))
@@ -165,12 +214,13 @@ def _profile(label: str, run, n: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--poses", type=int, default=6)
-    ap.add_argument("--rollout", choices=("host", "scan", "cli"),
+    ap.add_argument("--rollout", choices=("host", "scan", "cli", "train"),
                     default="host")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
-    for label, run in _runs(args.rollout):
+    runs = _train_runs() if args.rollout == "train" else _runs(args.rollout)
+    for label, run in runs:
         _profile(label, run, args.poses)
 
 

@@ -540,3 +540,70 @@ def test_bf16_unet_on_card():
             torch.testing.assert_close(a, b, rtol=0, atol=1e-2)
         for a, b in zip(outs["bf16"], outs["f32"]):
             torch.testing.assert_close(a, b, rtol=0, atol=0.05)
+
+
+def _train_data(n, size, seed):
+    from nextbestpath_tpu_torch.train.replay import Experience
+
+    rng = np.random.default_rng(seed)
+    return [Experience(
+        model_input=(rng.random((5, size, size)) * 3).astype(np.float16),
+        gt_layout=(rng.random((size, size)) > 0.7).astype(np.uint8),
+        pixels=np.stack([rng.integers(0, 8, 4), rng.integers(0, size // 4, 4),
+                         rng.integers(0, size // 4, 4)], 1).astype(np.int32),
+        gains=(rng.random(4) * 5).astype(np.float32), pose_i=12)
+        for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_train_step_turns_tf32_off_on_card():
+    """The training step on the card: forward, backward and the optimizer
+    step run with cuDNN's TF32 off whatever the caller set, the caller's
+    flags are back after each micro step, and the parameters move on the
+    k-th micro step only. One accumulation cycle in f64 equals the CPU's
+    within rtol 1e-4 (parameters and batch statistics)."""
+    _need_card()
+    import random
+
+    from nextbestpath_tpu_torch.models.unet import as_float64
+    from nextbestpath_tpu_torch.train import train_nbp as TT
+    from nextbestpath_tpu_torch.train.driver import seeded_train_model
+
+    data = _train_data(6, 64, 0)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        model = seeded_train_model(1, width=8).cuda()
+        st = TT.init_train_state(model, accumulation_steps=3)
+        ds, _ = TT.build_device_dataset(data, torch.device("cuda"))
+        seen = []
+        model.final2.register_forward_hook(
+            lambda *a: seen.append(torch.backends.cudnn.allow_tf32))
+        model.conv_blocks[0].conv0.weight.register_hook(
+            lambda g: seen.append(torch.backends.cudnn.allow_tf32))
+        st.optimizer.register_step_pre_hook(
+            lambda *a: seen.append(torch.backends.cudnn.allow_tf32))
+        w0 = model.final1.weight.detach().clone()
+        for i, (idx, sw) in enumerate(TT._micro_chunks(
+                list(range(6)), 2, device=torch.device("cuda"))):
+            TT._train_step_ds(st, ds, idx, sw)
+            assert torch.backends.cudnn.allow_tf32 is True
+            assert torch.backends.cuda.matmul.allow_tf32 is True
+            assert torch.equal(model.final1.weight, w0) == (i < 2)
+        assert len(seen) == 7 and not any(seen)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = as_float64(seeded_train_model(1, width=8)).to(dev)
+        st = TT.init_train_state(m, accumulation_steps=3)
+        ds, _ = TT.build_device_dataset(data, torch.device(dev))
+        TT.train_epoch_ds(st, ds, list(range(6)), random.Random(0),
+                          micro_batch=2)
+        out[dev] = {k: v.cpu() for k, v in m.state_dict().items()}
+    for k, want in out["cpu"].items():
+        torch.testing.assert_close(out["cuda"][k], want, rtol=1e-4,
+                                   atol=1e-10, msg=k)
