@@ -72,7 +72,20 @@ Phases, each of which raises on failure (exit code != 0):
    NBP(width=8) at 64x64 on the card against the CPU (f32: the losses and
    batch statistics, f64: the parameters, within rtol 1e-4); and
    ``run_training_nbp`` for 2 epochs of 8 poses on the main path's scene
-   into a temporary directory, its checkpoint read back equal.
+   into a temporary directory, its checkpoint read back equal;
+9. the scan trainer (``train/scan_collection.py``, ``train/driver.py::
+   run_training_nbp_scan``, what ``train_nbp_torch.py --scan`` runs):
+   ``ScanCollection`` on the main path's scene with the bf16 folded NBP,
+   12 poses as CUDA graphs after a 2-pose warm-up, counts set to 0 just
+   before its construction (K2 once, then a pose K1 twice and K3 once, the
+   planner kernels once a plan), then the same run eagerly, bit for bit;
+   K3 on a padded GT cloud against its plain version, and the masked
+   coverage on the card against the CPU, exactly; the bf16 training step at
+   full width (7 micro steps of 8) beside phase 8's f32 one; the driver for
+   3 epochs of 8 poses on two padded scenes with an eval scene, then a
+   resume to a 4th (files, the stale shard deleted, the optimizer's steps
+   carried on, the eval AUC logged); and a small collection on the card
+   against the CPU's (the same decisions, coverage within 1e-3).
 
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
@@ -699,7 +712,275 @@ def train_phase(params, assets, dev, smi):
     if not equal or epoch != 1 or names != ["nbp_best_val.ckpt"]:
         raise AssertionError("the driver's checkpoint did not read back equal")
     log(f"phase 8 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches, dict(collect_ms=collect_ms, micro_ms=sum(micro_ms) / len(micro_ms),
+                          fwd_ms=sum(fwd_ms) / len(fwd_ms), peak_gib=peak)
+
+
+def micro_step_times(state, ds, n, epochs=2):
+    """Device ms of the micro steps of the last of ``epochs`` passes over
+    ``n`` staged entries (``train_epoch_ds``), from CUDA events at each
+    forward's start and end and at the optimizer step: (micro step ms,
+    forward ms, peak GiB)."""
+    import random
+
+    import torch
+    from nextbestpath_tpu_torch.train import train_nbp as TT
+
+    marks = []
+
+    def mark(tag):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((tag, ev))
+
+    model = state.model
+    hooks = [model.register_forward_pre_hook(lambda *_: mark("fwd")),
+             model.register_forward_hook(lambda *_: mark("fwd_end")),
+             state.optimizer.register_step_pre_hook(lambda *_: mark("opt"))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for epoch in range(epochs):
+            marks.clear()
+            TT.train_epoch_ds(state, ds, list(range(n)), random.Random(epoch))
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    starts = [ev for tag, ev in marks if tag == "fwd"]
+    ends = [ev for tag, ev in marks if tag == "fwd_end"]
+    opt = [ev for tag, ev in marks if tag == "opt"][-1]
+    micro = [a.elapsed_time(b) for a, b in zip(starts, starts[1:] + [opt])]
+    fwd = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+    return (sum(micro) / len(micro), sum(fwd) / len(fwd),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def scan_train_phase(params, assets, small, s_assets, dev, smi, f32):
+    """Phase 9 (module docstring). ``f32``: phase 8's numbers, printed
+    beside. Returns the launches by kernel of the collection's main path
+    (construction, warm-up and run)."""
+    t_phase = time.perf_counter()
+    launches, coll, db = phase9_collection(params, assets, dev, smi, f32)
+    phase9_padded_k3(coll, dev)
+    phase9_bf16_step(db, dev, smi, f32)
+    del coll
+    phase9_driver(params, assets, dev, smi)
+    phase9_card_vs_cpu(small, s_assets)
+    log(f"phase 9 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
     return launches
+
+
+def phase9_collection(params, assets, dev, smi, f32):
+    """ScanCollection on the main path's scene with the bf16 folded NBP:
+    counts from 0 before its construction (the scene's K2 launch), read
+    after the warm-up (which captures the graphs) and after the measured
+    run; then the same run eagerly, bit for bit. Returns (launches, the
+    collection, a replay store of its labels)."""
+    import numpy as np
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.eval.nbp_planning import (MAIN_PATH_SEED,
+                                                          MAIN_PATH_WARMUP_POSES,
+                                                          seeded_nbp)
+    from nextbestpath_tpu_torch.train.replay import ReplayDB
+    from nextbestpath_tpu_torch.train.scan_collection import (ScanCollection,
+                                                              collect_trajectory_scan)
+
+    model = seeded_nbp(dtype=torch.bfloat16).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    coll = ScanCollection([assets], model, params=params, device=dev)
+    coll.run(0, model, seed=1, n_poses=MAIN_PATH_WARMUP_POSES)
+    setup = dict(kernels.LAUNCHES)
+    n_poses = 12
+    out = coll.run(0, model, seed=MAIN_PATH_SEED, n_poses=n_poses)
+    launches = dict(kernels.LAUNCHES)
+    run_l = {k: launches[k] - setup[k] for k in setup}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = coll.wall_time_s / n_poses * 1e3
+    plans = sum(coll.plan_poses)
+    replays, reads = dict(coll.replays), coll.host_reads
+    log(f"phase 9 collection simple/{MAIN_PATH_SEED}, bf16 folded NBP, {n_poses} poses as CUDA "
+        f"graphs [{smi}]: {ms:.2f} ms a collected pose (phase 8's host collection "
+        f"{f32['collect_ms']:.2f}), {plans} plans, {int(out.valid.sum())} valid poses, "
+        f"replays {replays}, host reads {reads}, coverage "
+        f"{[round(float(c), 4) for c in out.coverage]}, peak memory {peak:.0f} MiB; "
+        f"launches: construction and warm-up {setup}, run {run_l}")
+    rises("scan collection", [float(c) for c in out.coverage])
+    want = {"ray_hits_pinhole": 1 + 2 * n_poses, "ray_hits": 0, "min_sq_dists": n_poses,
+            "bfs_field": plans, "extract_path": plans}
+    if (run_l != want or setup["ray_hits"] != 1 or plans < 1 or reads != n_poses
+            or replays != {"pre": n_poses, "plan": plans, "post": n_poses}
+            or not out.valid.all()):
+        raise AssertionError(f"scan collection: launches {run_l} (expected {want}), "
+                             f"replays {replays}, host reads {reads}")
+    coll._use_graphs = False
+    eager = coll.run(0, model, seed=MAIN_PATH_SEED, n_poses=n_poses)
+    coll._use_graphs = True
+    same = all(np.array_equal(a, b) for a, b in zip(out, eager))
+    log(f"phase 9 collection captured vs eager, {n_poses} poses: bit for bit {same}")
+    if not same:
+        raise AssertionError("the captured collection differs from the eager one")
+    db = ReplayDB()
+    collect_trajectory_scan(coll, 0, model, db, seed=MAIN_PATH_SEED, n_poses=n_poses)
+    return launches, coll, db
+
+
+def phase9_padded_k3(coll, dev):
+    """K3 on a padded GT cloud against its plain version, and the masked
+    coverage on the card against the CPU's, on the collection's cloud:
+    normal/3 packed with 16,000 GT points and padded to simple/8's 20,000
+    (procgen scenes keep every GT point, so a real pair pads nothing)."""
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.assets import generate_scene, pack_generated_scene
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.ops.coverage import (coverage_percentage,
+                                                     min_sq_dists_plain,
+                                                     n_sample_for, stride_subsample)
+
+    normal = pack_generated_scene(generate_scene("normal", seed=3),
+                                  params=default_params(n_gt_surface_points=16000))
+    g_pad = torch.full((20000, 3), 1e7, device=dev)
+    g_pad[:16000] = torch.from_numpy(normal.gt_surface).to(dev)
+    valid = torch.arange(20000, device=dev) < 16000
+    pc = coll.state.pc
+    n_s = n_sample_for(20000, pc.capacity)
+    c = max(int(pc.count), 1)
+    start = torch.tensor(c // 3, device=dev)
+    half = torch.tensor(max(c // 7, 1), device=dev)
+    idx, ok = stride_subsample(start, half, pc.count, n_s)
+    s_in = torch.where(ok[:, None], pc.points[idx],
+                       torch.full_like(pc.points[idx], 1e9)).contiguous()
+    d_k = (kernels.min_sq_dists(g_pad, s_in, pc.count) if g_pad.is_cuda
+           else min_sq_dists_plain(g_pad, s_in, pc.count))
+    d_p = min_sq_dists_plain(g_pad, s_in, pc.count)
+    cov_card = float(coverage_percentage(g_pad, pc.points, pc.count, start, half,
+                                         gt_valid=valid))
+    cov_cpu = float(coverage_percentage(g_pad.cpu(), pc.points.cpu(), pc.count.cpu(),
+                                        start.cpu(), half.cpu(), gt_valid=valid.cpu()))
+    log(f"phase 9 K3 on padded GT (16,000 of 20,000 rows valid) x {n_s} samples, "
+        f"{int(pc.count)} points: bit for bit {torch.equal(d_k, d_p)}; masked coverage "
+        f"card {cov_card} vs cpu {cov_cpu}")
+    if not torch.equal(d_k, d_p) or cov_card != cov_cpu or not 0.0 < cov_card < 1.0:
+        raise AssertionError("K3 or the masked coverage disagrees on padded GT")
+
+
+def phase9_bf16_step(db, dev, smi, f32):
+    """The bf16 training step at full width: 56 experiences, 7 micro steps
+    of 8 and one AdamW step a pass, the second pass timed."""
+    import torch
+    from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
+    from nextbestpath_tpu_torch.train import train_nbp as TT
+
+    data = (db.entries * (56 // len(db.entries) + 1))[:56]
+    tm = seeded_nbp(dtype=torch.bfloat16).to(dev).train()
+    state = TT.init_train_state(tm)
+    ds, _ = TT.build_device_dataset(data, dev)
+    micro, fwd, peak = micro_step_times(state, ds, 56)
+    steps = int(state.optimizer.state[state.params[0]]["step"])
+    log(f"phase 9 bf16 training step, full-width NBP, 256x256x5, micro batch 8 [{smi}]: "
+        f"{micro:.2f} ms a micro step, forward {fwd:.2f} ms, peak {peak:.2f} GiB; "
+        f"phase 8's f32 step {f32['micro_ms']:.2f} ms, forward {f32['fwd_ms']:.2f} ms, "
+        f"peak {f32['peak_gib']:.2f} GiB; optimizer steps {steps}")
+    if steps != 2 or not all(p.dtype == torch.float32 for p in tm.parameters()):
+        raise AssertionError("the bf16 step did not emit twice on f32 parameters")
+
+
+def phase9_driver(params, assets, dev, smi):
+    """run_training_nbp_scan for 3 epochs of 8 poses on simple/8 and normal/3
+    padded to a common lattice with simple/508 held out, then a resume to a
+    4th epoch after a stale shard is planted. The checkpoint writes are
+    timed apart (the driver's ``save_checkpoint`` and ``save_nbp``)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from nextbestpath_tpu_torch.assets import (generate_scene, pack_generated_scene,
+                                               pad_assets_to_common)
+    from nextbestpath_tpu_torch.eval.nbp_planning import MAIN_PATH_SEED
+    from nextbestpath_tpu_torch.train import driver
+    from nextbestpath_tpu_torch.train.driver import (run_training_nbp_scan,
+                                                     seeded_train_model)
+
+    saves = []
+
+    def timed(fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            fn(*a, **k)
+            saves.append(time.perf_counter() - t0)
+        return call
+    from nextbestpath_tpu_torch.utils.checkpoint import load_checkpoint
+
+    scenes = pad_assets_to_common([
+        assets, pack_generated_scene(generate_scene("normal", seed=3), params=params)])
+    evals = [pack_generated_scene(generate_scene("simple", seed=508), params=params)]
+    tmp = tempfile.mkdtemp(prefix="nbp_scan_")
+    untimed = driver.save_checkpoint, driver.save_nbp
+    driver.save_checkpoint, driver.save_nbp = map(timed, untimed)
+    try:
+        def drive(epochs, resume):
+            t0 = time.perf_counter()
+            st = run_training_nbp_scan(
+                scenes, eval_scenes=evals, params=params, epochs=epochs, n_poses=8,
+                db_dir=os.path.join(tmp, "db"), weights_dir=os.path.join(tmp, "w"),
+                log_dir=os.path.join(tmp, "log"), seed=MAIN_PATH_SEED, verbose=False,
+                resume=resume, eval_every=2, eval_poses=4, device=dev,
+                model=seeded_train_model(MAIN_PATH_SEED, dtype=torch.bfloat16))
+            return (time.perf_counter() - t0,
+                    int(st.optimizer.state[st.params[0]]["step"]))
+        t3, steps3 = drive(3, False)
+        files = sorted(os.listdir(os.path.join(tmp, "w")))
+        shutil.copy(os.path.join(tmp, "db", "epoch_0002.npz"),
+                    os.path.join(tmp, "db", "epoch_0006.npz"))
+        t4, steps4 = drive(4, True)
+        shards = sorted(os.listdir(os.path.join(tmp, "db")))
+        epoch = load_checkpoint(os.path.join(tmp, "w", "nbp_latest.ckpt"))[2]
+        with open(os.path.join(tmp, "log", "nbp_loss.json")) as f:
+            loss_log = json.load(f)
+    finally:
+        driver.save_checkpoint, driver.save_nbp = untimed
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 9 scan trainer [{smi}]: simple/8 + normal/3 padded to "
+        f"{scenes[0].pose_l}x{scenes[0].pose_h}, eval simple/508, 3 epochs of 8 poses "
+        f"{t3:.2f} s (optimizer steps {steps3}), resumed to epoch 4 {t4:.2f} s (steps "
+        f"{steps4}); {len(saves)} checkpoint writes {sum(saves):.2f} s of it "
+        f"({[round(x, 2) for x in saves]}); weights {files}; shards {shards}; latest "
+        f"epoch {epoch}; log {json.dumps(loss_log)}")
+    if (files != ["nbp_best_auc.ckpt", "nbp_best_val.ckpt", "nbp_latest.ckpt"]
+            or "epoch_0006.npz" in shards or "epoch_0003.npz" not in shards
+            or epoch != 3 or not steps4 > steps3 >= 1 or not loss_log["eval_auc"]):
+        raise AssertionError("the scan trainer's files, shards, resume or eval disagree")
+
+
+def phase9_card_vs_cpu(small, s_assets):
+    """One small-config collection (f32 NBP) on the card and on the CPU with
+    one CPU generator's draws: the same decisions, coverage within 1e-3."""
+    import numpy as np
+    import torch
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
+    from nextbestpath_tpu_torch.train.scan_collection import ScanCollection
+
+    runs = {}
+    for d in ("cuda", "cpu"):
+        m = seeded_nbp()
+        c2 = ScanCollection([s_assets], m, params=small, device=d,
+                            make_draws=lambda s, d=d: TorchDraws(s, torch.device(d), "cpu"))
+        runs[d] = (c2.run(0, m, seed=4, n_poses=8), c2.plan_poses)
+    (g, g_plans), (c, c_plans) = runs["cuda"], runs["cpu"]
+    diff = float(np.abs(g.coverage - c.coverage).max())
+    same = (g_plans == c_plans and np.array_equal(g.rot, c.rot)
+            and np.array_equal(g.valid, c.valid) and np.array_equal(g.planned, c.planned)
+            and float(np.abs(g.pose5 - c.pose5).max()) < 1e-4)
+    log(f"phase 9 small collection card vs CPU (32x56, 8 poses, plans {g_plans}): coverage "
+        f"{[round(float(x), 4) for x in g.coverage]} vs "
+        f"{[round(float(x), 4) for x in c.coverage]}, max diff {diff:.2e}, same decisions {same}")
+    if diff > TOL_COVERAGE or not same:
+        raise AssertionError("the card's small collection disagrees with the CPU's")
 
 
 def main() -> int:
@@ -1009,7 +1290,12 @@ def main() -> int:
     by_path = cli_phase(params, model, small, s_assets, dev)
 
     # 8. Training: collection, the training step, the driver.
-    by_path["train"] = train_phase(params, assets, dev, smi)
+    by_path["train"], f32_train = train_phase(params, assets, dev, smi)
+
+    # 9. The scan trainer: collection as graphs, K3 on padded GT, the bf16
+    # step, the driver with a resume, the card against the CPU.
+    by_path["scan_train"] = scan_train_phase(params, assets, small, s_assets, dev, smi,
+                                             f32_train)
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]

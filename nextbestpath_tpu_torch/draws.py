@@ -25,9 +25,17 @@ buffer slot), ``obs``, one ``plan`` group per planning attempt, ``rot`` or
 ``rot2`` when taken, and ``move``. The role names the group; it does not
 select a key.
 
-The training collection (``train/collection.py``) takes the sequential
-schedule, with the Boltzmann pick of its first candidate as one ``goal``
-group served by ``gumbel`` (``jax.random.categorical``'s noise).
+The host-loop training collection (``train/collection.py``) takes the
+sequential schedule, with the Boltzmann pick of its first candidate as one
+``goal`` group served by ``gumbel`` (``jax.random.categorical``'s noise).
+
+The scan trainer's collection (``train/scan_collection.py``) takes the role
+schedule with its own role set, one role for each key of the JAX
+collection step's 8-way split (``state.key`` and seven keys): ``cov``,
+``obs``, ``bolt`` (the Boltzmann pick, served by ``gumbel``), ``pick`` (the
+orientations' uniforms), ``u`` (the rotation override's ``uniform``),
+``rot`` (its ``randint``) and ``move``; ``init`` serves the initial
+capture (the JAX ``k0``). Every role is drawn every pose.
 
 In both schedules ``step`` folds a substep's index into its group's key
 (``fold_in(key, s)``), and ``uniforms`` serves several draws from the split

@@ -35,17 +35,26 @@ The params ``stratified_sampling`` (the two-stage stratified pixel draw of
 ``sim.sensor.backproject_sample``, where it applies) and
 ``batched_capture`` (a move's frames appended with one scatter) select the
 JAX class's capture options; their draws are static buffers too.
-Not ported: ``segment_len`` (a TPU watchdog workaround that gives
-identical results), the ``ablate`` profiling switch (the stage ranges of
-``torch.profiler.record_function`` take its place), ``BatchedScanRollout``
-and ``run_interleaved``.
+``run(..., variables=model)`` (or ``load_weights``) runs new weights: they
+are folded and copied into the tensors the graphs were captured over.
+
+``BatchedScanRollout`` runs several same-lattice scenes padded to common
+triangle and GT sizes (``pad_scene_arrays``; the coverage metric masks
+the padded GT rows). Unlike the JAX class, which vmaps the step over a
+scene axis, it runs the scenes one after another through one captured
+``ScanRollout``, copying each scene's arrays into the tensors its graphs
+read; the scenes share its one folded weight copy. Not ported:
+``segment_len`` (a TPU watchdog workaround that gives identical results),
+the ``ablate`` profiling switch (the stage ranges of
+``torch.profiler.record_function`` take its place), the batched U-Net
+forward over the scenes, ``mesh`` sharding and ``run_interleaved``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -121,10 +130,20 @@ class SceneArrays:
     tri_soa: torch.Tensor          # (9, F)
     n_tris: torch.Tensor           # (1,) int32
     gt: torch.Tensor               # (G, 3)
+    gt_valid: torch.Tensor         # (G,) bool: False on padded GT rows
     positions: torch.Tensor        # (L, H, 3)
     gt_edge_blocked: torch.Tensor  # (4, L, H) bool
     y_bins: torch.Tensor           # (n_pieces + 1,)
     azims: torch.Tensor            # (A,)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    def copy_(self, other: "SceneArrays") -> None:
+        """Another scene's arrays (of the same shapes) into these tensors,
+        in place: graphs captured over them then read the other scene."""
+        for dst, src in zip(self.tensors(), other.tensors()):
+            dst.copy_(src)
 
 
 @dataclasses.dataclass
@@ -195,10 +214,20 @@ def scene_arrays_from_assets(assets: SceneAssets, n_pieces: int = 4,
     tables = build_scene_tables(tri_soa, n_tris,
                                 torch.from_numpy(assets.pose_origin).to(dev),
                                 assets.pose_l, assets.pose_h)
+    return scene_arrays_from_tables(assets, tri_soa, n_tris, tables,
+                                    n_pieces)
+
+
+def scene_arrays_from_tables(assets: SceneAssets, tri_soa: torch.Tensor,
+                             n_tris: torch.Tensor, tables,
+                             n_pieces: int = 4) -> SceneArrays:
+    """SceneArrays from a scene's SoA buffer and its cast tables."""
+    dev = tri_soa.device
+    gt = torch.from_numpy(assets.gt_surface).to(dev)
     verts_y = assets.tris[:assets.n_tris, :, 1]
     return SceneArrays(
-        tri_soa=tri_soa, n_tris=n_tris,
-        gt=torch.from_numpy(assets.gt_surface).to(dev),
+        tri_soa=tri_soa, n_tris=n_tris, gt=gt,
+        gt_valid=torch.ones(gt.shape[0], dtype=torch.bool, device=dev),
         positions=tables.positions, gt_edge_blocked=tables.gt_edge_blocked,
         y_bins=height_bins(float(verts_y.min()), float(verts_y.max()),
                            n_pieces, device=dev),
@@ -206,36 +235,165 @@ def scene_arrays_from_assets(assets: SceneAssets, n_pieces: int = 4,
                                           np.float32)).to(dev))
 
 
-class ScanRollout:
+def pad_scene_arrays(scene: SceneArrays, f_max: int, g_max: int
+                     ) -> SceneArrays:
+    """The scene with its triangle buffer padded to f_max columns (rows of
+    1e8, past n_tris) and its GT cloud to g_max rows (at 1e7, gt_valid
+    False), so that same-lattice scenes share one capture."""
+    tri_soa, gt, gt_valid = scene.tri_soa, scene.gt, scene.gt_valid
+    if tri_soa.shape[1] < f_max:
+        tri_soa = torch.cat([tri_soa, torch.full(
+            (9, f_max - tri_soa.shape[1]), 1e8, dtype=tri_soa.dtype,
+            device=tri_soa.device)], dim=1)
+    if gt.shape[0] < g_max:
+        n_pad = g_max - gt.shape[0]
+        gt = torch.cat([gt, torch.full((n_pad, 3), 1e7, dtype=gt.dtype,
+                                       device=gt.device)])
+        gt_valid = torch.cat([gt_valid, torch.zeros(
+            n_pad, dtype=torch.bool, device=gt.device)])
+    return dataclasses.replace(scene, tri_soa=tri_soa, gt=gt,
+                               gt_valid=gt_valid)
+
+
+def common_sizes(assets_list: Sequence[SceneAssets]):
+    """(f_max, g_max) of same-lattice scenes; raises when the lattices
+    differ (``pad_assets_to_common`` makes them agree)."""
+    shapes = {(a.pose_l, a.pose_h, a.n_azim) for a in assets_list}
+    if len(shapes) != 1:
+        raise ValueError(f"the scenes need a common pose lattice (got "
+                         f"{shapes}); pad them with pad_assets_to_common")
+    return (max(a.tris.shape[0] for a in assets_list),
+            max(len(a.gt_surface) for a in assets_list))
+
+
+class GraphSteps:
+    """The pre / plan / post steps of a device-resident rollout, run eagerly
+    or captured once as CUDA graphs over static tensors and replayed.
+
+    A subclass defines ``_pre_step``, ``_plan_step`` and ``_post_step``
+    (each updates static tensors in place and reads no device value on the
+    host) and calls ``_init_graphs`` in its constructor."""
+
+    STEPS = ("pre", "plan", "post")
+
+    def _init_graphs(self, n_flags: int) -> None:
+        # On the card a pose replays captured graphs; clearing this runs
+        # the same steps eagerly (the checks of the capture and the
+        # profiler's stage split do).
+        self._use_graphs = self.device.type == "cuda"
+        self._graphs: Dict[str, torch.cuda.CUDAGraph] = {}
+        self.graph_launches: Dict[str, Dict[str, int]] = {}
+        # Graph replays and host reads of the flags (a captured pose's only
+        # sync) of the last run.
+        self.replays = dict.fromkeys(self.STEPS, 0)
+        self.host_reads = 0
+        if self.device.type == "cuda":
+            self._flags_host = torch.zeros(n_flags,
+                                           dtype=torch.bool).pin_memory()
+            self._flags_read = torch.cuda.Event()
+
+    def _capture(self) -> None:
+        """Warm the three steps up on a side stream (cuDNN picks its
+        algorithms, under the U-Net's f32 setting), then capture each as a
+        graph. The warm-up advances the state, which ``run`` then resets.
+        ``graph_launches`` records the kernel launches of each graph, which
+        every replay adds to ``kernels.LAUNCHES``; a capture launches
+        nothing, so its calls are taken back out."""
+        kernels.build()
+        steps = [(name, getattr(self, f"_{name}_step")) for name in self.STEPS]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _, fn in steps:
+                fn()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        pool = None
+        for name, fn in steps:
+            before = dict(kernels.LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                fn()
+            self.graph_launches[name] = {
+                k: kernels.LAUNCHES[k] - before[k] for k in before}
+            kernels.LAUNCHES.update(before)
+            self._graphs[name] = graph
+            pool = graph.pool()
+        torch.cuda.synchronize(self.device)
+
+    def _step(self, name: str) -> None:
+        """One of the three steps: its graph replayed, or its function run
+        eagerly."""
+        if not self._use_graphs:
+            getattr(self, f"_{name}_step")()
+            return
+        with record_function(name):
+            self._graphs[name].replay()
+        kernels.count_replay(self.graph_launches[name])
+        self.replays[name] += 1
+
+    def _read_flags(self, flags: torch.Tensor) -> torch.Tensor:
+        """Device bool flags on the host: on the card a copy of a few bytes
+        into pinned memory, the pose's one sync."""
+        if not self._use_graphs:
+            return flags.cpu()
+        n = flags.numel()
+        self._flags_host[:n].copy_(flags, non_blocking=True)
+        self._flags_read.record()
+        self._flags_read.synchronize()
+        self.host_reads += 1
+        return self._flags_host[:n]
+
+    def _begin_run(self) -> None:
+        self.replays = dict.fromkeys(self.STEPS, 0)
+        self.host_reads = 0
+
+    @torch.no_grad()
+    def load_weights(self, model: NBP) -> None:
+        """The weights of ``model`` (an unfolded NBP of the same shape, e.g.
+        the trainer's) for the next runs: folded, when this rollout folds,
+        and copied into the tensors the captured graphs read (rebinding
+        them would leave the graphs on the old weights). ``model`` is left
+        as it is."""
+        src = fold_bn_model(model) if self._fold_bn else model
+        self.model.load_state_dict(src.state_dict())
+
+
+class ScanRollout(GraphSteps):
     """The NBP evaluation rollout with its state on the device.
 
     model: a ``models.unet.NBP`` (folded with ``fold_bn`` by default, as the
     JAX class folds its variables). draws: a provider of the role draws
     (default: ``TorchDraws(seed)`` on the device, made anew by each
     ``run``); a provider given here is used as it is by every run.
-    device: "cuda" unless the caller asks for the CPU; raises if CUDA is
-    asked for and absent."""
+    scene: the scene's arrays when the caller made them (padded ones,
+    ``pad_scene_arrays``); the rollout keeps its own copy. device: "cuda"
+    unless the caller asks for the CPU; raises if CUDA is asked for and
+    absent."""
 
     def __init__(self, assets: SceneAssets, model: NBP,
                  params: Optional[Params] = None, max_plan_retries: int = 4,
                  fold_bn: bool = True, draws=None,
+                 scene: Optional[SceneArrays] = None,
                  device: DeviceLike = "cuda"):
         self.device = dev = resolve_device(device)
         self.params = p = params or default_params()
         self.assets = assets
         self.max_plan_retries = int(max_plan_retries)
+        self._fold_bn = fold_bn
         self.model = (fold_bn_model(model) if fold_bn else model).to(dev).eval()
         self.draws = draws
-        # On the card a pose replays captured graphs; clearing this runs
-        # the same steps eagerly (the checks of the capture and the
-        # profiler's stage split do).
-        self._use_graphs = dev.type == "cuda"
+        self._init_graphs(1)
         self.intr = CameraIntrinsics(
             image_height=int(p.image_height), image_width=int(p.image_width),
             fov_degrees=float(p.fov_degrees), znear=float(p.camera_znear),
             zfar=float(p.zfar))
-        self.scene = scene_arrays_from_assets(
-            assets, n_pieces=int(p.n_pieces), device=dev)
+        if scene is None:
+            self.scene = scene_arrays_from_assets(
+                assets, n_pieces=int(p.n_pieces), device=dev)
+        else:
+            self.scene = SceneArrays(*[t.to(dev).clone()
+                                       for t in scene.tensors()])
         self.L, self.H, self.A = assets.pose_l, assets.pose_h, assets.n_azim
         self._elev = torch.full((1,), float(assets.elevations_deg[2]),
                                 dtype=torch.float32, device=dev)
@@ -249,13 +407,8 @@ class ScanRollout:
         self.max_len = int(p.max_path_len)
         self.state: Optional[ScanState] = None
         self._pose_cap = 0
-        self._graphs: Dict[str, torch.cuda.CUDAGraph] = {}
-        self.graph_launches: Dict[str, Dict[str, int]] = {}
-        # The last run's regeneration flag a pose, graph replays and host
-        # reads of the flag (the captured pose's only sync).
+        # The last run's regeneration flag a pose.
         self.regen_poses: List[bool] = []
-        self.replays = {"pre": 0, "plan": 0, "post": 0}
-        self.host_reads = 0
 
         def z(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -273,9 +426,18 @@ class ScanRollout:
             if self.stratified else None,
             move_ranks=z((self.n_steps, self.n_slots), torch.float32)
             if self.stratified else None)
-        if dev.type == "cuda":
-            self._regen_host = torch.zeros(1, dtype=torch.bool).pin_memory()
-            self._regen_read = torch.cuda.Event()
+
+    # -- scenes --------------------------------------------------------------
+
+    def set_scene(self, assets: SceneAssets, scene: SceneArrays) -> None:
+        """Another scene of the same lattice and padded sizes for the next
+        runs: its arrays are copied into the ones the graphs read."""
+        if (assets.pose_l, assets.pose_h, assets.n_azim) != (
+                self.L, self.H, self.A):
+            raise ValueError("set_scene needs a scene of the same lattice")
+        self.scene.copy_(scene)
+        self._elev.fill_(float(assets.elevations_deg[2]))
+        self.assets = assets
 
     # -- helpers -------------------------------------------------------------
 
@@ -367,7 +529,8 @@ class ScanRollout:
         s, d, sc, pre = self.state, self.pose_draws, self.scene, self.pre
         with record_function("coverage"):
             cov = coverage_percentage(sc.gt, s.pc.points, s.pc.count,
-                                      d.cov_start, d.cov_stride)
+                                      d.cov_start, d.cov_stride,
+                                      gt_valid=sc.gt_valid)
             self.cov_curve.index_copy_(0, s.pose_i.reshape(1), cov.reshape(1))
         cur_pose5 = self._pose5(s.cur)
         with record_function("observe"):
@@ -494,68 +657,24 @@ class ScanRollout:
         s.path_record.copy_(path_record + 1)
         s.pose_i.add_(1)
 
-    # -- graphs --------------------------------------------------------------
-
-    def _capture(self) -> None:
-        """Warm the three steps up on a side stream (cuDNN picks its
-        algorithms, under the U-Net's f32 setting), then capture each as a
-        graph. The warm-up advances the state, which ``run`` then resets.
-        ``graph_launches`` records the kernel launches of each graph, which
-        every replay adds to ``kernels.LAUNCHES``; a capture launches
-        nothing, so its calls are taken back out."""
-        kernels.build()
-        steps = (("pre", self._pre_step), ("plan", self._plan_step),
-                 ("post", self._post_step))
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _, fn in steps:
-                fn()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        pool = None
-        for name, fn in steps:
-            before = dict(kernels.LAUNCHES)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                fn()
-            self.graph_launches[name] = {
-                k: kernels.LAUNCHES[k] - before[k] for k in before}
-            kernels.LAUNCHES.update(before)
-            self._graphs[name] = graph
-            pool = graph.pool()
-        torch.cuda.synchronize(self.device)
-
-    def _step(self, name: str) -> None:
-        """One of the three steps: its graph replayed, or its function run
-        eagerly."""
-        if not self._use_graphs:
-            getattr(self, f"_{name}_step")()
-            return
-        with record_function(name):
-            self._graphs[name].replay()
-        kernels.count_replay(self.graph_launches[name])
-        self.replays[name] += 1
-
     def _regen_flag(self) -> bool:
-        """The regeneration flag on the host: the pose's one sync, a 1-byte
-        copy into pinned memory."""
-        self._regen_host.copy_(self.pre.regen.reshape(1), non_blocking=True)
-        self._regen_read.record()
-        self._regen_read.synchronize()
-        self.host_reads += 1
-        return bool(self._regen_host[0])
+        """The regeneration flag on the host: the pose's one sync."""
+        return bool(self._read_flags(self.pre.regen.reshape(1))[0])
 
     # -- the rollout ---------------------------------------------------------
 
     @torch.no_grad()
-    def run(self, n_poses: int = 101, seed: int = 8) -> RolloutResult:
+    def run(self, n_poses: int = 101, seed: int = 8,
+            variables: Optional[NBP] = None) -> RolloutResult:
         """n_poses poses from the scene's start; the draws come from
-        ``TorchDraws(seed)`` unless a provider was given. The clock runs
-        from the first pose, once the set-up has finished on the device, to
-        the read of the coverage curve and the trajectory, after a final
-        sync; state set-up and, on a run that needs them, the graphs'
-        capture come before it."""
+        ``TorchDraws(seed)`` unless a provider was given; ``variables``
+        (an unfolded NBP) replaces the weights first (``load_weights``).
+        The clock runs from the first pose, once the set-up has finished on
+        the device, to the read of the coverage curve and the trajectory,
+        after a final sync; state set-up and, on a run that needs them, the
+        graphs' capture come before it."""
+        if variables is not None:
+            self.load_weights(variables)
         draws = self.draws if self.draws is not None else TorchDraws(
             seed, self.device)
         self._ensure_capacity(n_poses)
@@ -564,16 +683,14 @@ class ScanRollout:
         self._init_state(draws)
         d = self.pose_draws
         regen_poses = []
-        self.replays = dict.fromkeys(self.replays, 0)
-        self.host_reads = 0
+        self._begin_run()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
         for _ in range(n_poses):
             self._draw_pose(draws)
             self._step("pre")
-            regen = (self._regen_flag() if self._use_graphs
-                     else bool(self.pre.regen))
+            regen = self._regen_flag()
             if regen:
                 d.plan.copy_(draws.uniform("plan", (self.max_len, self.A)))
                 self._step("plan")
@@ -591,3 +708,57 @@ class ScanRollout:
             coverage_evolution=[float(c) for c in coverage],
             auc=compute_auc(coverage), cam_positions=cam, wall_time_s=wall,
             n_points=n_points, steps_per_sec=n_poses / wall)
+
+
+class BatchedScanRollout:
+    """Rollouts of several same-lattice scenes (JAX ``BatchedScanRollout``).
+
+    The scenes are padded to common triangle and GT sizes and run one after
+    another through one ``ScanRollout`` (so one capture and one folded
+    weight copy serve them all); scene i's draws come from seed + i, as in
+    the JAX class. make_draws(seed), when given, makes scene i's provider
+    (the tests inject the JAX key schedule so). Results equal per-scene
+    ``ScanRollout`` runs on the padded arrays."""
+
+    def __init__(self, assets_list: Sequence[SceneAssets], model: NBP,
+                 params: Optional[Params] = None, max_plan_retries: int = 4,
+                 fold_bn: bool = True,
+                 make_draws: Optional[Callable[[int], object]] = None,
+                 device: DeviceLike = "cuda"):
+        if not assets_list:
+            raise ValueError("BatchedScanRollout needs at least one scene")
+        dev = resolve_device(device)
+        p = params or default_params()
+        f_max, g_max = common_sizes(assets_list)
+        self.assets_list = list(assets_list)
+        self.n_scenes = len(self.assets_list)
+        self.scenes = [pad_scene_arrays(scene_arrays_from_assets(
+            a, n_pieces=int(p.n_pieces), device=dev), f_max, g_max)
+            for a in self.assets_list]
+        self.rollout = ScanRollout(self.assets_list[0], model, params=p,
+                                   max_plan_retries=max_plan_retries,
+                                   fold_bn=fold_bn, scene=self.scenes[0],
+                                   device=dev)
+        self.make_draws = make_draws
+        self.p = p
+
+    def run(self, n_poses: int = 101, seed: int = 8,
+            variables: Optional[NBP] = None) -> List[RolloutResult]:
+        """One rollout a scene, scene i from seed + i; ``variables`` (an
+        unfolded NBP) replaces the weights first. Each result's wall time is
+        the whole batch's, and its rate counts every scene's poses."""
+        r = self.rollout
+        if variables is not None:
+            r.load_weights(variables)
+        results = []
+        for i, (assets, scene) in enumerate(zip(self.assets_list,
+                                                self.scenes)):
+            r.set_scene(assets, scene)
+            r.draws = (self.make_draws(seed + i)
+                       if self.make_draws is not None else None)
+            results.append(r.run(n_poses=n_poses, seed=seed + i))
+        wall = sum(res.wall_time_s for res in results)
+        for res in results:
+            res.wall_time_s = wall
+            res.steps_per_sec = self.n_scenes * n_poses / wall
+        return results

@@ -28,48 +28,51 @@ def _by_suffix(tree: Mapping, prefix: str):
     return sorted(names, key=lambda k: int(pat.match(k).group(1)))
 
 
-def _conv(out: Dict, dst: str, conv: Mapping) -> None:
-    kernel = np.asarray(conv["kernel"], np.float32)         # (H, W, I, O)
+def _conv(out: Dict, dst: str, conv: Mapping, dtype) -> None:
+    kernel = np.asarray(conv["kernel"], dtype)              # (H, W, I, O)
     out[f"{dst}.weight"] = torch.from_numpy(
         np.array(kernel.transpose(3, 2, 0, 1), order="C"))
-    out[f"{dst}.bias"] = torch.from_numpy(np.array(conv["bias"], np.float32))
+    out[f"{dst}.bias"] = torch.from_numpy(np.array(conv["bias"], dtype))
 
 
-def _bn(out: Dict, dst: str, p: Mapping, s: Mapping) -> None:
+def _bn(out: Dict, dst: str, p: Mapping, s: Mapping, dtype) -> None:
     for src, name in _BN_KEYS:
-        out[f"{dst}.{name}"] = torch.from_numpy(np.array(p[src], np.float32))
+        out[f"{dst}.{name}"] = torch.from_numpy(np.array(p[src], dtype))
     for src, name in _STAT_KEYS:
-        out[f"{dst}.{name}"] = torch.from_numpy(np.array(s[src], np.float32))
+        out[f"{dst}.{name}"] = torch.from_numpy(np.array(s[src], dtype))
     out[f"{dst}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
-def flax_to_state_dict(params: Mapping, batch_stats: Mapping
+def flax_to_state_dict(params: Mapping, batch_stats: Mapping,
+                       dtype: np.dtype = np.float32
                        ) -> Dict[str, torch.Tensor]:
-    """State dict for ``models.unet.NBP`` from flax params/batch_stats."""
+    """State dict for ``models.unet.NBP`` from flax params/batch_stats,
+    its tensors in ``dtype``."""
     out: Dict[str, torch.Tensor] = {}
     for i, name in enumerate(_by_suffix(params, "ConvBlock")):
         p, s = params[name], batch_stats[name]
         for j in range(2):
             _conv(out, f"conv_blocks.{i}.conv{j}",
-                  p[f"TorchConv_{j}"]["Conv_0"])
+                  p[f"TorchConv_{j}"]["Conv_0"], dtype)
             _bn(out, f"conv_blocks.{i}.bn{j}", p[f"BatchNorm_{j}"],
-                s[f"BatchNorm_{j}"])
+                s[f"BatchNorm_{j}"], dtype)
     for i, name in enumerate(_by_suffix(params, "UpConv")):
         p, s = params[name], batch_stats[name]
-        _conv(out, f"up_convs.{i}.conv", p["TorchConv_0"]["Conv_0"])
-        _bn(out, f"up_convs.{i}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+        _conv(out, f"up_convs.{i}.conv", p["TorchConv_0"]["Conv_0"], dtype)
+        _bn(out, f"up_convs.{i}.bn", p["BatchNorm_0"], s["BatchNorm_0"],
+            dtype)
     for i, name in enumerate(_by_suffix(params, "AttentionGate")):
         p, s = params[name], batch_stats[name]
         for j, (conv, bn) in enumerate((("w_g", "bn_g"), ("w_x", "bn_x"),
                                         ("psi", "bn_psi"))):
             _conv(out, f"att_gates.{i}.{conv}",
-                  p[f"TorchConv_{j}"]["Conv_0"])
+                  p[f"TorchConv_{j}"]["Conv_0"], dtype)
             _bn(out, f"att_gates.{i}.{bn}", p[f"BatchNorm_{j}"],
-                s[f"BatchNorm_{j}"])
+                s[f"BatchNorm_{j}"], dtype)
     for head in ("final1", "final2"):
-        _conv(out, head, params[head]["Conv_0"])
+        _conv(out, head, params[head]["Conv_0"], dtype)
     out["log_vars"] = torch.from_numpy(np.array(
-        params.get("log_vars", np.zeros(2, np.float32)), np.float32))
+        params.get("log_vars", np.zeros(2, np.float32)), dtype))
     return out
 
 

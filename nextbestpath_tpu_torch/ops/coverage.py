@@ -133,25 +133,39 @@ def subsample_buffer(scores_u: torch.Tensor, count: torch.Tensor,
 
 def _coverage_of_sample(gt: torch.Tensor, pts: torch.Tensor,
                         count: torch.Tensor, idx: torch.Tensor,
-                        valid: torch.Tensor, threshold: float
+                        valid: torch.Tensor, threshold: float,
+                        gt_valid: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     # Both samplers put their valid slots in a leading prefix, so the count
-    # bounds K3's inner loop.
+    # bounds K3's inner loop. K3 gives padded GT rows a distance too; the
+    # mask drops them after it.
     dmin = min_dists(gt, pts[idx], valid, s_count=count)
-    cov = (dmin < threshold).to(torch.float32).sum() / max(gt.shape[0], 1)
+    close = (dmin < threshold).to(torch.float32)
+    if gt_valid is None:
+        cov = close.sum() / max(gt.shape[0], 1)
+    else:
+        close = close * gt_valid
+        cov = close.sum() / torch.clamp(gt_valid.sum(), min=1)
     return torch.where(count > 0, cov, torch.zeros_like(cov))
 
 
 def coverage_percentage(gt: torch.Tensor, pts: torch.Tensor,
                         count: torch.Tensor, start: torch.Tensor,
                         stride_half: torch.Tensor, threshold: float = 1.0,
-                        weight: int = 2) -> torch.Tensor:
+                        weight: int = 2,
+                        gt_valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Share of GT points within ``threshold`` of the stride subsample of
     the buffer (the JAX package's ``fast_sampling=True``); 0 when the
-    buffer is empty. Returns a 0-d f32 tensor on the buffer's device."""
+    buffer is empty. Returns a 0-d f32 tensor on the buffer's device.
+
+    gt_valid (G,) bool masks padded GT rows (a scene padded to a common
+    G): they leave the numerator, and the denominator is the valid count.
+    The sample's size follows the padded G, as the JAX package's does."""
     n_sample = n_sample_for(gt.shape[0], pts.shape[0], weight)
     idx, valid = stride_subsample(start, stride_half, count, n_sample)
-    return _coverage_of_sample(gt, pts, count, idx, valid, threshold)
+    return _coverage_of_sample(gt, pts, count, idx, valid, threshold,
+                               gt_valid)
 
 
 def coverage_percentage_exact(gt: torch.Tensor, pts: torch.Tensor,

@@ -47,7 +47,9 @@ def _section_from_abc(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                          torch.where((f0 & f1)[:, None], p1, p2))
     n_cross = f0.int() + f1.int() + f2.int()
     valid = (n_cross >= 2) & (torch.arange(F_, device=a.device) < n_tris)
-    seg = torch.stack([first[:, [0, 2]], second[:, [0, 2]]], dim=1)
+    # (x, z) by a strided slice: a list index would be a host tensor, which
+    # a CUDA graph capture refuses.
+    seg = torch.stack([first[:, 0::2], second[:, 0::2]], dim=1)
     return seg, valid
 
 

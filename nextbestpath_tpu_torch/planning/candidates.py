@@ -63,14 +63,14 @@ def score_candidates_train(positions: torch.Tensor, cam_xyz: torch.Tensor,
                            ) -> torch.Tensor:
     """(L, H) training-collection scores: the best orientation's value for
     every position inside the value map except the current one (index
-    ``current_lh`` (l, h)); NEG elsewhere."""
+    ``current_lh`` (l, h): host ints, or a device tensor, which is compared
+    and never read on the host); NEG elsewhere."""
     L, H = positions.shape[:2]
     pix64, in64 = _project_lattice(positions, cam_xyz, value_map_size,
                                    grid_range)
     value = value_map.amax(dim=-1)[pix64[..., 0], pix64[..., 1]]
-    is_current = torch.zeros((L, H), dtype=torch.bool,
-                             device=positions.device)
-    is_current[int(current_lh[0]), int(current_lh[1])] = True
+    cell = torch.arange(L * H, device=positions.device).view(L, H)
+    is_current = cell == current_lh[0] * H + current_lh[1]
     return torch.where(in64 & ~is_current, value,
                        torch.full_like(value, NEG))
 

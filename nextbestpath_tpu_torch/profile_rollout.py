@@ -1,7 +1,7 @@
 """Where a pose's time goes: a planning rollout under ``torch.profiler``.
 
     python3 -m nextbestpath_tpu_torch.profile_rollout [--poses 6]
-        [--rollout host|scan|cli|train]
+        [--rollout host|scan|cli|train|collect]
 
 Runs the main path that ``chip_smoke.py`` drives
 (``eval.nbp_planning.main_path_setup``: procgen ``simple`` seed 8, default
@@ -28,6 +28,12 @@ graphs' device time by stage. Prints, a run:
   dispatch;
 * the operations with the most device time. Needs a CUDA card.
 
+``--rollout collect`` profiles the scan trainer's collection
+(``train.scan_collection.ScanCollection``, what ``chip_smoke.py`` phase 9
+times) on the same scene with the bf16 NBP, folded, as graphs and then
+eagerly, after a warm-up of each; its stages add ``model_input`` and
+``gt_layout``.
+
 ``--rollout train`` profiles the trainer's step instead (what
 ``chip_smoke.py`` phase 8 times): the main path's scene collected for 12
 poses with the full-width f32 NBP, 56 of its experiences staged, one
@@ -52,8 +58,9 @@ from .eval.nbp_planning import (MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES,
                                 seeded_nbp)
 from .eval.scan_rollout import ScanRollout
 
-STAGES = ("coverage", "observe", "projections", "unet", "plan", "move", "pre",
-          "post", "forward", "backward", "accumulate", "optimizer")
+STAGES = ("coverage", "observe", "projections", "model_input", "gt_layout",
+          "unet", "plan", "move", "pre", "post", "forward", "backward",
+          "accumulate", "optimizer")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
 
@@ -127,6 +134,36 @@ def _runs(kind: str):
             return scan.run(n_poses=n, seed=MAIN_PATH_SEED)
         return go
     return [("scan graphs", run(True)), ("scan eager", run(False))]
+
+
+class _Curve:
+    """A collection rollout's result in the shape ``_profile`` prints."""
+
+    def __init__(self, out, n):
+        self.coverage_evolution = [float(c) for c in out.coverage[:n]]
+
+
+def _collect_runs():
+    """[("collect graphs", run), ("collect eager", run)], each warmed up."""
+    from .train.scan_collection import ScanCollection
+
+    params, assets, _ = main_path_setup()
+    dev = torch.device("cuda")
+    # On the card, as the trainer's model is: each run refolds it there.
+    model = seeded_nbp(dtype=torch.bfloat16).to(dev)
+    coll = ScanCollection([assets], model, params=params, device=dev)
+    for graphs in (True, False):
+        coll._use_graphs = graphs
+        coll.run(0, model, seed=MAIN_PATH_SEED,
+                 n_poses=MAIN_PATH_WARMUP_POSES)
+
+    def run(graphs):
+        def go(n):
+            coll._use_graphs = graphs
+            return _Curve(coll.run(0, model, seed=MAIN_PATH_SEED, n_poses=n),
+                          n)
+        return go
+    return [("collect graphs", run(True)), ("collect eager", run(False))]
 
 
 class _Cycles:
@@ -214,12 +251,14 @@ def _profile(label: str, run, n: int) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--poses", type=int, default=6)
-    ap.add_argument("--rollout", choices=("host", "scan", "cli", "train"),
+    ap.add_argument("--rollout",
+                    choices=("host", "scan", "cli", "train", "collect"),
                     default="host")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
-    runs = _train_runs() if args.rollout == "train" else _runs(args.rollout)
+    runs = {"train": _train_runs, "collect": _collect_runs}.get(
+        args.rollout, lambda: _runs(args.rollout))()
     for label, run in runs:
         _profile(label, run, args.poses)
 

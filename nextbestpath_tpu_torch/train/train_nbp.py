@@ -19,6 +19,16 @@ under ``cudnn_f32``: autograd runs the backward
 convolutions after the forward has returned, so the U-Net's own guard
 does not cover them. The caller's TF32 flag is back after the step.
 
+``opt_state_to_flax`` and ``opt_state_from_flax`` map a ``TrainState`` to
+and from the state dict that flax writes for the JAX package's optimizer,
+``optax.MultiSteps(optax.inject_hyperparams(optax.adamw))`` (optax 0.2.6,
+flax 0.12.3), so that a resume checkpoint is read by either package.
+
+A ``NBP(dtype=torch.bfloat16)`` trains through the same step: its
+convolutions compute in bf16, its parameters, gradients, accumulator and
+Adam moments stay f32, and its BatchNorms run in f32, as flax's ``dtype``
+does.
+
 The epoch's data is staged once on the device (f16 inputs, u8 layouts,
 ``build_device_dataset``), and micro batches are gathered by index. Ragged
 per-experience pixel lists are padded to ``MAX_PIXELS`` with zero weights.
@@ -38,6 +48,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import Params, default_params
+from ..models.convert import flax_to_state_dict, state_dict_to_flax
 from ..models.unet import NBP, cudnn_f32, nbp_loss
 from .replay import Experience, ReplayDB
 
@@ -90,6 +101,86 @@ def set_lr(state: TrainState, lr: float) -> None:
     state.lr = float(lr)
     for group in state.optimizer.param_groups:
         group["lr"] = state.lr
+
+
+def _flax_param_tree(state: TrainState, tensors: List[torch.Tensor],
+                     dtype=np.float32) -> Dict:
+    """One tensor a parameter of ``state.model`` -> flax's params tree."""
+    sd = dict(state.model.state_dict())
+    sd.update({name: t for (name, _), t in
+               zip(state.model.named_parameters(), tensors)})
+    return state_dict_to_flax(sd, dtype=dtype)[0]
+
+
+def _from_flax_param_tree(state: TrainState, tree: Dict
+                          ) -> List[torch.Tensor]:
+    """flax's params tree -> one tensor a parameter of ``state.model``."""
+    _, stats = state_dict_to_flax(state.model.state_dict())
+    dtype = np.float64 if state.model.log_vars.dtype == torch.float64 \
+        else np.float32
+    sd = flax_to_state_dict(tree, stats, dtype=dtype)
+    return [sd[name] for name, _ in state.model.named_parameters()]
+
+
+def opt_state_to_flax(state: TrainState, dtype=np.float32) -> Dict:
+    """The state dict flax writes for the JAX package's optimizer state
+    (``MultiStepsState`` over ``inject_hyperparams(adamw)``): AdamW's step,
+    ``exp_avg`` and ``exp_avg_sq`` as the inner Adam ``count``, ``mu`` and
+    ``nu``; the accumulator as ``acc_grads``; ``mini_step``; the emitted
+    steps as ``gradient_step``; ``lr`` as ``hyperparams.learning_rate``.
+    Numpy leaves, the moments in ``dtype``."""
+    params = state.params
+    opt = state.optimizer
+    group = opt.param_groups[0]
+    slots = [opt.state.get(p, {}) for p in params]
+    step = int(slots[0]["step"]) if slots[0] else 0
+    mu = [s.get("exp_avg", torch.zeros_like(p)) for s, p in zip(slots, params)]
+    nu = [s.get("exp_avg_sq", torch.zeros_like(p))
+          for s, p in zip(slots, params)]
+
+    def f32(x):
+        return np.asarray(x, np.float32)
+
+    count = np.asarray(step, np.int32)
+    hyper = {"learning_rate": f32(state.lr), "b1": f32(group["betas"][0]),
+             "b2": f32(group["betas"][1]), "eps": f32(group["eps"]),
+             "eps_root": f32(0.0),
+             "weight_decay": f32(group["weight_decay"])}
+    adam = {"count": count, "mu": _flax_param_tree(state, mu, dtype),
+            "nu": _flax_param_tree(state, nu, dtype)}
+    return {"mini_step": np.asarray(state.mini_step, np.int32),
+            "gradient_step": count,
+            "inner_opt_state": {"count": count, "hyperparams": hyper,
+                                "hyperparams_states": {},
+                                "inner_state": {"0": adam, "1": {}, "2": {}}},
+            "acc_grads": _flax_param_tree(state, state.acc, dtype),
+            "skip_state": {}}
+
+
+@torch.no_grad()
+def opt_state_from_flax(tree: Dict, state: TrainState) -> TrainState:
+    """Load a flax optimizer state dict (``opt_state_to_flax``'s layout, as
+    the JAX package's checkpoints hold it) into ``state`` in place: AdamW's
+    step and moments, the accumulator, the mini-step count and the
+    learning rate. Returns ``state``."""
+    inner = tree["inner_opt_state"]
+    adam = inner["inner_state"]["0"]
+    step = int(np.asarray(adam["count"]))
+    params = state.params
+    opt = state.optimizer
+    for p, m, v in zip(params, _from_flax_param_tree(state, adam["mu"]),
+                       _from_flax_param_tree(state, adam["nu"])):
+        if step == 0:
+            opt.state.pop(p, None)
+            continue
+        opt.state[p] = {"step": torch.tensor(float(step), dtype=torch.float32),
+                        "exp_avg": m.to(p), "exp_avg_sq": v.to(p)}
+    for a, g in zip(state.acc, _from_flax_param_tree(state,
+                                                     tree["acc_grads"])):
+        a.copy_(g)
+    state.mini_step = int(np.asarray(tree["mini_step"]))
+    set_lr(state, float(np.asarray(inner["hyperparams"]["learning_rate"])))
+    return state
 
 
 def build_device_dataset(data: List[Experience], device: torch.device

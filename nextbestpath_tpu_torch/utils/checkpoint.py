@@ -24,7 +24,7 @@ from __future__ import annotations
 import os
 import pickle
 import struct
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -176,57 +176,74 @@ def _sized(n: int, fix: Optional[Tuple[int, int]], codes) -> bytes:
     raise ValueError(f"a msgpack object of {n} entries is too large")
 
 
-def _ext(code: int, data: bytes) -> bytes:
+def _ext(code: int, data: List, out: List) -> None:
+    """An ext object whose payload is the chunks ``data``."""
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-    n = len(data)
+    n = sum(memoryview(c).nbytes for c in data)
     head = (bytes([fixed[n]]) if n in fixed
             else _sized(n, None, (0xC7, 0xC8, 0xC9)))
-    return head + struct.pack(">b", code) + data
+    out.append(head + struct.pack(">b", code))
+    out.extend(data)
 
 
-def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+def _ndarray_chunks(arr: np.ndarray) -> List:
+    """The (shape, dtype name, C bytes) triple; the bytes are a flat u8
+    view of the array (a copy only when it is not C-contiguous)."""
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes cannot be saved")
-    return _pack((arr.shape, arr.dtype.name, arr.tobytes("C")))
+    data = memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+    chunks: List = []
+    _pack((arr.shape, arr.dtype.name, data), chunks)
+    return chunks
 
 
-def _pack(x: Any) -> bytes:
+def _pack(x: Any, out: List) -> None:
+    """Append the msgpack encoding of x to ``out`` as chunks, so that array
+    data is copied once, by the final join."""
     if x is None:
-        return b"\xc0"
-    if isinstance(x, bool):
-        return b"\xc3" if x else b"\xc2"
-    if isinstance(x, np.ndarray):
+        out.append(b"\xc0")
+    elif isinstance(x, bool):
+        out.append(b"\xc3" if x else b"\xc2")
+    elif isinstance(x, np.ndarray):
         if x.nbytes > MAX_LEAF_BYTES:
             raise ValueError(f"an array leaf of {x.nbytes} bytes would need "
                              f"flax's chunked form, which is not written")
-        return _ext(_EXT_NDARRAY, _ndarray_to_bytes(x))
-    if isinstance(x, np.generic):  # before float: np.float64 is a float
-        return _ext(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
-    if isinstance(x, int):
-        return _int(x)
-    if isinstance(x, float):
-        return b"\xcb" + struct.pack(">d", x)
-    if isinstance(x, complex):
-        return _ext(_EXT_COMPLEX, _pack((x.real, x.imag)))
-    if isinstance(x, str):
+        _ext(_EXT_NDARRAY, _ndarray_chunks(x), out)
+    elif isinstance(x, np.generic):  # before float: np.float64 is a float
+        _ext(_EXT_NPSCALAR, _ndarray_chunks(np.asarray(x)), out)
+    elif isinstance(x, int):
+        out.append(_int(x))
+    elif isinstance(x, float):
+        out.append(b"\xcb" + struct.pack(">d", x))
+    elif isinstance(x, complex):
+        data: List = []
+        _pack((x.real, x.imag), data)
+        _ext(_EXT_COMPLEX, data, out)
+    elif isinstance(x, str):
         b = x.encode("utf-8")
-        return _sized(len(b), (0xA0, 32), (0xD9, 0xDA, 0xDB)) + b
-    if isinstance(x, (bytes, bytearray, memoryview)):
-        b = bytes(x)
-        return _sized(len(b), None, (0xC4, 0xC5, 0xC6)) + b
-    if isinstance(x, (list, tuple)):
-        return (_sized(len(x), (0x90, 16), (None, 0xDC, 0xDD))
-                + b"".join(_pack(v) for v in x))
-    if isinstance(x, dict):
-        return (_sized(len(x), (0x80, 16), (None, 0xDE, 0xDF))
-                + b"".join(_pack(k) + _pack(v) for k, v in x.items()))
-    raise TypeError(f"cannot pack {type(x).__name__} as msgpack")
+        out.append(_sized(len(b), (0xA0, 32), (0xD9, 0xDA, 0xDB)) + b)
+    elif isinstance(x, (bytes, bytearray, memoryview)):
+        out.append(_sized(memoryview(x).nbytes, None, (0xC4, 0xC5, 0xC6)))
+        out.append(x)
+    elif isinstance(x, (list, tuple)):
+        out.append(_sized(len(x), (0x90, 16), (None, 0xDC, 0xDD)))
+        for v in x:
+            _pack(v, out)
+    elif isinstance(x, dict):
+        out.append(_sized(len(x), (0x80, 16), (None, 0xDE, 0xDF)))
+        for k, v in x.items():
+            _pack(k, out)
+            _pack(v, out)
+    else:
+        raise TypeError(f"cannot pack {type(x).__name__} as msgpack")
 
 
 def msgpack_serialize(tree: Any) -> bytes:
     """The bytes ``flax.serialization.msgpack_serialize`` gives for a tree
     of dicts with numpy leaves (torch tensors are taken as numpy)."""
-    return _pack(_to_numpy(tree))
+    out: List = []
+    _pack(_to_numpy(tree), out)
+    return b"".join(out)
 
 
 def _to_numpy(tree: Any) -> Any:
