@@ -4,6 +4,7 @@
     python3 bench_torch.py [--poses 30] [--warmup-poses 3]
         [--difficulty simple] [--seed 8] [--quick] [--device cuda]
         [--dtype float32|bfloat16] [--stratified] [--batched-capture]
+        [--batch N] [--secondary]
 
 The single-scene path of ``bench.py`` over the port's device-resident
 rollout (``nextbestpath_tpu_torch/eval/scan_rollout.py::ScanRollout``, a
@@ -25,9 +26,19 @@ rollouts of ``--poses`` poses at ``seed + 1``. Prints ONE JSON line:
      "device": "<name, power limit>", "coverage_final", "auc", "dtype",
      "stratified", "batched_capture"}
 
-``vs_baseline`` divides by ``bench.py``'s provisional reference rate. Runs
-on the card unless ``--device cpu``; exits 2 when the card is asked for and
-absent.
+``vs_baseline`` divides by ``bench.py``'s provisional reference rate.
+
+``--batch N`` (N > 1), as ``bench.py``'s: the procgen scenes ``seed + i``
+(i < N), padded to a common lattice, through the true-batch
+``BatchedScanRollout`` (one U-Net forward of batch N on any scene's
+regeneration pose, one flag read a pose); the measured runs take
+``seed + 100`` as ``bench.py``'s batched run does, ``value`` is the median
+aggregate rate (N x poses / wall) and the line gains ``"batch": N``.
+``--secondary`` (batch 1 only, as ``bench.py``'s) measures the other
+sampling mode the same way and adds ``<tag>_value`` and
+``<tag>_vs_baseline``, tag ``stratified`` (or ``faithful`` under
+``--stratified``). Runs on the card unless ``--device cpu``; exits 2 when
+the card is asked for and absent.
 """
 
 from __future__ import annotations
@@ -71,15 +82,21 @@ def main(argv=None) -> int:
                     help="the stratified pixel draw in every frame")
     ap.add_argument("--batched-capture", action="store_true",
                     help="a move's frames appended with one scatter")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="scenes rolled out together on a scene axis")
+    ap.add_argument("--secondary", action="store_true",
+                    help="also the other sampling mode's rate (batch 1)")
     args = ap.parse_args(argv)
 
     import torch
 
     from nextbestpath_tpu_torch.assets import (generate_scene,
-                                               pack_generated_scene)
-    from nextbestpath_tpu_torch.config import default_params
+                                               pack_generated_scene,
+                                               pad_assets_to_common)
+    from nextbestpath_tpu_torch.config import Params, default_params
     from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
-    from nextbestpath_tpu_torch.eval.scan_rollout import ScanRollout
+    from nextbestpath_tpu_torch.eval.scan_rollout import (BatchedScanRollout,
+                                                          ScanRollout)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -97,27 +114,67 @@ def main(argv=None) -> int:
         poses = args.poses
     params.update(stratified_sampling=args.stratified,
                   batched_capture=args.batched_capture)
-    assets = pack_generated_scene(
-        generate_scene(args.difficulty, seed=args.seed), params=params)
-    rollout = ScanRollout(assets, seeded_nbp(dtype=getattr(torch, args.dtype)),
-                          params=params, device=device)
-    rollout.run(n_poses=args.warmup_poses, seed=args.seed)
-    results, regens = [], []
-    for _ in range(RUNS):
-        results.append(rollout.run(n_poses=poses, seed=args.seed + 1))
-        regens.append(sum(rollout.regen_poses))
-    rates = [r.steps_per_sec for r in results]
+    if args.batch < 1:
+        ap.error("--batch must be at least 1")
+    model = seeded_nbp(dtype=getattr(torch, args.dtype))
+
+    def measure(rollout, seed):
+        """The warm-up run (it captures the graphs), then RUNS measured
+        runs: (rates, results of the first run, regeneration poses a run)."""
+        rollout.run(n_poses=args.warmup_poses, seed=args.seed)
+        rates, regens, outs = [], [], []
+        for _ in range(RUNS):
+            outs.append(rollout.run(n_poses=poses, seed=seed))
+            res = outs[-1][0] if args.batch > 1 else outs[-1]
+            rates.append(res.steps_per_sec)
+            regens.append(sum(map(any, rollout.regen_poses))
+                          if args.batch > 1 else sum(rollout.regen_poses))
+        return rates, outs[0], regens
+
+    if args.batch > 1:
+        scenes = pad_assets_to_common([pack_generated_scene(
+            generate_scene(args.difficulty, seed=args.seed + i),
+            params=params) for i in range(args.batch)])
+        rollout = BatchedScanRollout(scenes, model, params=params,
+                                     device=device)
+        rates, results, regens = measure(rollout, args.seed + 100)
+        res = results[0]
+        stratified = rollout.members[0].stratified
+        batched_capture = rollout.members[0].batched_capture
+    else:
+        assets = pack_generated_scene(
+            generate_scene(args.difficulty, seed=args.seed), params=params)
+        rollout = ScanRollout(assets, model, params=params, device=device)
+        rates, res, regens = measure(rollout, args.seed + 1)
+        stratified, batched_capture = (rollout.stratified,
+                                       rollout.batched_capture)
     value = statistics.median(rates)
-    res = results[0]
-    print(json.dumps({
+    line = {
         "metric": "env_steps_per_sec", "value": value, "unit": "poses/s",
         "vs_baseline": value / REFERENCE_POSES_PER_SEC, "min": min(rates),
         "max": max(rates), "runs": RUNS, "device": device_label(device),
         "coverage_final": res.coverage_evolution[-1], "auc": res.auc,
-        "dtype": args.dtype, "stratified": rollout.stratified,
-        "batched_capture": rollout.batched_capture}))
-    print(f"# {args.difficulty}/{args.seed}, {poses} poses a run, rates "
-          f"{rates}, regeneration poses a run {regens}, points "
+        "dtype": args.dtype, "stratified": stratified,
+        "batched_capture": batched_capture}
+    if args.batch > 1:
+        line["batch"] = args.batch
+    elif args.secondary:
+        tag = "faithful" if args.stratified else "stratified"
+        other = Params(dict(params.as_dict(),
+                            stratified_sampling=not args.stratified),
+                       flatten=False)
+        o_rates, o_res, _ = measure(
+            ScanRollout(assets, model, params=other, device=device),
+            args.seed + 1)
+        line[f"{tag}_value"] = statistics.median(o_rates)
+        line[f"{tag}_vs_baseline"] = (line[f"{tag}_value"]
+                                      / REFERENCE_POSES_PER_SEC)
+        print(f"# {tag}: rates {o_rates}, coverage final "
+              f"{o_res.coverage_evolution[-1]:.4f} auc {o_res.auc:.4f}",
+              file=sys.stderr)
+    print(json.dumps(line))
+    print(f"# {args.difficulty}/{args.seed} x {args.batch}, {poses} poses a "
+          f"run, rates {rates}, regeneration poses a run {regens}, points "
           f"{res.n_points}", file=sys.stderr)
     return 0
 

@@ -85,7 +85,25 @@ Phases, each of which raises on failure (exit code != 0):
    3 epochs of 8 poses on two padded scenes with an eval scene, then a
    resume to a 4th (files, the stale shard deleted, the optimizer's steps
    carried on, the eval AUC logged); and a small collection on the card
-   against the CPU's (the same decisions, coverage within 1e-3).
+   against the CPU's (the same decisions, coverage within 1e-3);
+10. several scenes on one card: the true-batch ``BatchedScanRollout`` over
+   four padded ``simple`` scenes (seeds 8-11) at full width in f32, 6
+   poses after a 2-pose warm-up, counts set to 0 before its construction
+   (K2 once a scene, then a pose K1 twice and K3 once for all scenes, the
+   planner kernels max_plan_retries times on any-regeneration poses, one
+   host read), coverage rising in each scene, captured equal to eager bit
+   for bit, and the same trajectories and coverage as four single captured
+   ``ScanRollout``s; ``run_interleaved`` over those four, bit for bit
+   against their single runs; ``ScanRandomWalk`` over the four scenes as
+   one graph a pose with no host read, equal to eager; the aggregate
+   poses/s of sequential single runs, ``run_interleaved`` and the true
+   batch at B = 4 and 8 for 30 poses with the peak memory; and a small
+   true batch of two scenes on the card against the CPU.
+
+Phase 3 also holds the scene-axis launches (K1, K3 and the planner
+kernels over B scenes, one count, lattice, start or goal a scene) against
+their plain versions and against stacked single-scene launches, bit for
+bit, at B = 4 and 8.
 
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
@@ -809,8 +827,8 @@ def phase9_collection(params, assets, dev, smi, f32):
         f"{[round(float(c), 4) for c in out.coverage]}, peak memory {peak:.0f} MiB; "
         f"launches: construction and warm-up {setup}, run {run_l}")
     rises("scan collection", [float(c) for c in out.coverage])
-    want = {"ray_hits_pinhole": 1 + 2 * n_poses, "ray_hits": 0, "min_sq_dists": n_poses,
-            "bfs_field": plans, "extract_path": plans}
+    want = dict(dict.fromkeys(kernels.LAUNCHES, 0), ray_hits_pinhole=1 + 2 * n_poses,
+                min_sq_dists=n_poses, bfs_field=plans, extract_path=plans)
     if (run_l != want or setup["ray_hits"] != 1 or plans < 1 or reads != n_poses
             or replays != {"pre": n_poses, "plan": plans, "post": n_poses}
             or not out.valid.all()):
@@ -954,6 +972,398 @@ def phase9_driver(params, assets, dev, smi):
             or "epoch_0006.npz" in shards or "epoch_0003.npz" not in shards
             or epoch != 3 or not steps4 > steps3 >= 1 or not loss_log["eval_auc"]):
         raise AssertionError("the scan trainer's files, shards, resume or eval disagree")
+
+
+def scene_seeds(n):
+    """The procgen ``simple`` seeds of phase 3's and phase 10's scene axis:
+    the main path's seed and the next ones."""
+    from nextbestpath_tpu_torch.eval.nbp_planning import MAIN_PATH_SEED
+    return [MAIN_PATH_SEED + i for i in range(n)]
+
+
+def padded_scenes(params, n):
+    from nextbestpath_tpu_torch.assets import (generate_scene, pack_generated_scene,
+                                               pad_assets_to_common)
+    return pad_assets_to_common([pack_generated_scene(generate_scene("simple", seed=s),
+                                                      params=params)
+                                 for s in scene_seeds(n)])
+
+
+def scene_kernel_rows(params, intr, dev):
+    """Phase 3's scene-axis launches against their plain versions and
+    against a stack of single-scene launches of today's kernels, bit for
+    bit: K1 over B = 4 and 8 padded ``simple`` scenes (seeds 8-15), a move's
+    4 frames each; K3 over B = 4 and 8 scenes' GT clouds with unequal
+    sample counts (a 0 among them); P1/P2 over B = 4 17x17 lattices (the
+    scenes' GT edge tables) and B = 4 58x58 mazes. The JSON rows take
+    B = 4, the batch of phase 10; B = 8 is logged beside."""
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.eval.nbp_planning import main_path_move
+    from nextbestpath_tpu_torch.geometry.cameras import get_camera_RT
+    from nextbestpath_tpu_torch.ops.coverage import min_sq_dists_scenes_plain
+    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tri_soa,
+                                                     ray_hits_pinhole_scenes_plain,
+                                                     tris_to_soa)
+    from nextbestpath_tpu_torch.planning.grid_paths import (
+        INF, bfs_distance_field_scenes_plain, extract_path_scenes_plain)
+    from nextbestpath_tpu_torch.sim.tables import build_scene_tables
+
+    zn, zf = float(intr.znear), float(intr.zfar)
+    n_steps = int(params.n_interpolation_steps)
+    scenes = padded_scenes(params, 8)
+    out = {}
+    for B in (4, 8):
+        a_b = scenes[:B]
+        dirs, phs, counts = [], [], []
+        for a in a_b:
+            soa = tris_to_soa(torch.from_numpy(a.tris).to(dev))
+            poses = main_path_move(a, n_steps, dev)
+            R, T = get_camera_RT(poses[:, :3], poses[:, 3:])
+            eyes, d = frame_rays(R, T, intr)
+            dirs.append(d)
+            phs.append(pinhole_tri_soa(soa, eyes))
+            counts += [a.n_tris] * n_steps
+        dirs = torch.cat(dirs).contiguous()
+        ph = torch.cat(phs).contiguous()
+        nt = torch.tensor(counts, dtype=torch.int32, device=dev)
+        got = kernels.ray_hits_pinhole_scenes(dirs, ph, nt, zn, zf)
+        want = ray_hits_pinhole_scenes_plain(dirs, ph, nt, zn, zf)
+        single = [kernels.ray_hits_pinhole(dirs[k:k + n_steps], ph[k:k + n_steps],
+                                           nt[k], zn, zf)
+                  for k in range(0, len(counts), n_steps)]
+        single = tuple(torch.cat([x[i] for x in single]) for i in range(3))
+        compare_hits(f"K1 ray_hits_pinhole_scenes ({B} scenes x {n_steps} frames, one "
+                     f"launch)", got, want, dirs.shape[0] * dirs.shape[1])
+        if not all(torch.equal(g, w) for g, w in zip(got, single)):
+            raise AssertionError(f"K1's scene axis differs from single launches (B={B})")
+        n = dirs.shape[0] * dirs.shape[1]
+        ops = dirs.shape[1] * sum(counts) * OPS_K1
+        out[("k1", B)] = dict(
+            ms=kernels.device_ms(lambda: kernels.ray_hits_pinhole_scenes(dirs, ph, nt, zn, zf), 30),
+            plain_ms=kernels.device_ms(
+                lambda: ray_hits_pinhole_scenes_plain(dirs, ph, nt, zn, zf), 2),
+            single_ms=kernels.device_ms(lambda: [
+                kernels.ray_hits_pinhole(dirs[k:k + n_steps], ph[k:k + n_steps], nt[k], zn, zf)
+                for k in range(0, len(counts), n_steps)], 20),
+            bound=bound_ms(n * 12 + ph.numel() * 4 + 4 * len(counts) + n * 12, ops),
+            library_ms=None, ceiling=ceiling_ms(ops),
+            shape=f"{B} scenes x {n_steps} frames x {dirs.shape[1]} rays x "
+                  f"{counts[0]} tris, a count a frame")
+
+        gen = torch.Generator(device="cpu").manual_seed(B)
+        n_s = 40960
+        c_list = [40960, 12345, 0, 30000, 40960, 777, 20000, 40960][:B]
+        gs, ss = [], []
+        for a, c in zip(a_b, c_list):
+            g = torch.from_numpy(a.gt_surface).to(dev)
+            samp = g[torch.randint(0, g.shape[0], (n_s,), generator=gen).to(dev)]
+            samp = samp + 0.5 * torch.randn(n_s, 3, generator=gen).to(dev)
+            ss.append(torch.where((torch.arange(n_s, device=dev) < c)[:, None], samp,
+                                  torch.full_like(samp, 1e9)))
+            gs.append(g)
+        g3, s3 = torch.stack(gs).contiguous(), torch.stack(ss).contiguous()
+        c3 = torch.tensor(c_list, dtype=torch.int32, device=dev)
+        got = kernels.min_sq_dists_scenes(g3, s3, c3)
+        want = min_sq_dists_scenes_plain(g3, s3, c3)
+        single = torch.stack([kernels.min_sq_dists(g, s_, c) for g, s_, c in zip(g3, s3, c3)])
+        ok = torch.equal(got, want) and torch.equal(got, single)
+        log(f"K3 min_sq_dists_scenes ({B} scenes x {g3.shape[1]} GT x {n_s} samples, counts "
+            f"{c_list}): equal to the plain version and to single launches {ok}; tiling "
+            f"{kernels.min_sq_dists_tiling(g3.shape[1], n_s, dev, n_scenes=B)}")
+        if not ok:
+            raise AssertionError(f"K3's scene axis disagrees (B={B})")
+        ops = g3.shape[1] * sum(c_list) * OPS_K3
+        out[("k3", B)] = dict(
+            ms=kernels.device_ms(lambda: kernels.min_sq_dists_scenes(g3, s3, c3), 20),
+            plain_ms=kernels.device_ms(lambda: min_sq_dists_scenes_plain(g3, s3, c3), 2),
+            single_ms=kernels.device_ms(lambda: [kernels.min_sq_dists(g, s_, c) for g, s_, c
+                                                 in zip(g3, s3, c3)], 20),
+            bound=bound_ms(g3.numel() * 4 + 12 * sum(c_list) + 4 * B + 4 * g3.shape[1] * B,
+                           ops),
+            library_ms=(kernels.device_ms(lambda: torch.cdist(g3, s3).amin(-1), 3)
+                        if B == 4 else None),
+            ceiling=ceiling_ms(ops),
+            shape=f"{B} scenes x {g3.shape[1]} GT x {n_s} samples, counts {c_list}")
+        del g3, s3, gs, ss
+        torch.cuda.empty_cache()
+
+    max_len = int(params.max_path_len)
+    blocked17, start17 = [], []
+    for a in scenes[:4]:
+        soa = tris_to_soa(torch.from_numpy(a.tris).to(dev))
+        nt = torch.tensor([a.n_tris], dtype=torch.int32, device=dev)
+        blocked17.append(build_scene_tables(soa, nt, torch.from_numpy(a.pose_origin).to(dev),
+                                            a.pose_l, a.pose_h).gt_edge_blocked)
+        start17.append([int(a.start_cam_idx[0]), int(a.start_cam_idx[2])])
+    maze = serpentine(58, 58, dev)
+    cases = {"17x17": (torch.stack(blocked17).contiguous(),
+                       torch.tensor(start17, dtype=torch.int64, device=dev)),
+             "58x58 maze": (maze.expand(4, -1, -1, -1).contiguous(),
+                            torch.tensor([[0, 0], [57, 0], [0, 57], [57, 57]],
+                                         dtype=torch.int64, device=dev))}
+    for name, (blocked, start) in cases.items():
+        B, L, H = blocked.shape[0], blocked.shape[2], blocked.shape[3]
+        dist = kernels.bfs_field_scenes(blocked, start)
+        dist_p = bfs_distance_field_scenes_plain(blocked, start, L, H)
+        dist_1 = torch.stack([kernels.bfs_field(b, st) for b, st in zip(blocked, start)])
+        reach = dist_p < INF
+        flat = torch.argmax(torch.where(reach, dist_p, -1).reshape(B, -1), dim=1)
+        goal = torch.stack([flat // H, flat % H], dim=1)
+        ecc = [int(d[r].max()) for d, r in zip(dist_p, reach)]
+        path, meta = kernels.extract_path_scenes(dist, blocked, goal, max_len)
+        path_p, len_p, reach_p = extract_path_scenes_plain(dist_p, blocked, goal, L, H, max_len)
+        singles = [kernels.extract_path(d, b, g, max_len) for d, b, g in zip(dist, blocked, goal)]
+        ok = (torch.equal(dist, dist_p) and torch.equal(dist, dist_1)
+              and torch.equal(path, path_p) and torch.equal(meta[:, 0], len_p)
+              and torch.equal(meta[:, 1] != 0, reach_p)
+              and torch.equal(path, torch.stack([x[0] for x in singles]))
+              and torch.equal(meta, torch.stack([x[1] for x in singles])))
+        log(f"planner kernels, scene axis ({B} x {name}): eccentricities {ecc}, path lengths "
+            f"{len_p.tolist()} (max_len {max_len}), equal to the plain versions and to single "
+            f"launches {ok}")
+        if not ok:
+            raise AssertionError(f"the planner kernels' scene axis disagrees ({name})")
+        n = L * H
+        out[("bfs", name)] = dict(
+            ms=kernels.device_ms(lambda: kernels.bfs_field_scenes(blocked, start), 50),
+            plain_ms=wall_ms(lambda: bfs_distance_field_scenes_plain(blocked, start, L, H), 2),
+            single_ms=kernels.device_ms(lambda: [kernels.bfs_field(b, st) for b, st
+                                                 in zip(blocked, start)], 50),
+            bound=bound_ms(B * (4 * n + 16 + 4 * n), B * n * OPS_BFS_NODE, PEAK_INT32_OPS),
+            library_ms=None, ceiling=None, shape=f"{B} x {name} lattices")
+        out[("walk", name)] = dict(
+            ms=kernels.device_ms(lambda: kernels.extract_path_scenes(dist, blocked, goal,
+                                                                     max_len), 50),
+            plain_ms=wall_ms(lambda: extract_path_scenes_plain(dist_p, blocked, goal, L, H,
+                                                               max_len), 2),
+            single_ms=kernels.device_ms(lambda: [kernels.extract_path(d, b, g, max_len) for d, b, g
+                                                 in zip(dist, blocked, goal)], 50),
+            bound=bound_ms(sum(16 + 4 + e * BYTES_WALK_STEP + 8 * max_len + 8 for e in ecc),
+                           sum(e * OPS_WALK_STEP for e in ecc), PEAK_INT32_OPS),
+            library_ms=None, ceiling=None, shape=f"{B} x {name} lattices")
+    for key, r in out.items():
+        log(f"  {key[0]} scene axis {key[1]}: {r['ms']:.4f} ms (single launches "
+            f"{r['single_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.4g} ms by {r['bound'][1]}, library {r['library_ms']}) at "
+            f"{r['shape']}")
+    rows = []
+    for name, key, src, rep in (
+            ("ray_hits_pinhole_scenes", ("k1", 4), "raytrace.cu",
+             "nextbestpath_tpu/ops/raytrace.py:288 (vmapped)"),
+            ("min_sq_dists_scenes", ("k3", 4), "coverage.cu",
+             "nextbestpath_tpu/ops/coverage.py:134 (vmapped)"),
+            ("bfs_field_scenes", ("bfs", "17x17"), "plan.cu",
+             "nextbestpath_tpu/planning/grid_paths.py:102 (XLA while_loop, vmapped)"),
+            ("extract_path_scenes", ("walk", "17x17"), "plan.cu",
+             "nextbestpath_tpu/planning/grid_paths.py:160 (XLA while_loop, vmapped)")):
+        r = out[key]
+        rows.append(dict(name=name, route="cuda", source=f"nextbestpath_tpu_torch/csrc/{src}",
+                         replaces=rep, max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"],
+                         bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                         ceiling_ms=r["ceiling"], library_ms=r["library_ms"], shape=r["shape"]))
+    return rows
+
+
+def multi_scene_phase(params, small, dev, smi):
+    """Phase 10 (module docstring). Returns the launches by kernel of its
+    three counted paths: {"batch": ..., "interleaved": ..., "walk": ...}."""
+    import numpy as np
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.nbp_planning import (MAIN_PATH_WARMUP_POSES,
+                                                          seeded_nbp)
+    from nextbestpath_tpu_torch.eval.random_walk import ScanRandomWalk
+    from nextbestpath_tpu_torch.eval.scan_rollout import (BatchedScanRollout,
+                                                          ScanRollout, run_interleaved)
+
+    t_phase = time.perf_counter()
+    B, n_poses, seed = 4, 6, scene_seeds(1)[0]
+    scenes = padded_scenes(params, B)
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    # (a) The true batch as graphs, counts from 0 before its construction.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    batch = BatchedScanRollout(scenes, seeded_nbp(), params=params, device=dev)
+    built = dict(kernels.LAUNCHES)
+    batch.run(n_poses=MAIN_PATH_WARMUP_POSES, seed=seed)
+    setup = dict(kernels.LAUNCHES)
+    res = batch.run(n_poses=n_poses, seed=seed)
+    after = dict(kernels.LAUNCHES)
+    run_l = {k: after[k] - setup[k] for k in after}
+    flags = batch.regen_poses
+    any_regen = sum(any(f) for f in flags)
+    mixed = sum(any(f) and not all(f) for f in flags)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"phase 10(a) true batch, {B} x simple {scene_seeds(B)} padded to "
+        f"{scenes[0].pose_l}x{scenes[0].pose_h}, f32 seeded NBP, {n_poses} poses after "
+        f"{MAIN_PATH_WARMUP_POSES} [{smi}]: {res[0].wall_time_s / n_poses * 1e3:.2f} ms a pose "
+        f"of {B} scenes ({res[0].steps_per_sec:.2f} scene-poses/s), flags {flags} "
+        f"({any_regen} any-regeneration poses, {mixed} mixed), replays {batch.replays}, host "
+        f"reads {batch.host_reads}, peak {peak:.0f} MiB; launches: construction {built}, "
+        f"run {run_l}")
+    for i, r in enumerate(res):
+        log(f"  scene {i}: coverage {[round(c, 4) for c in r.coverage_evolution]}, points "
+            f"{r.n_points}")
+        rises(f"true batch scene {i}", r.coverage_evolution)
+    R = batch.max_plan_retries
+    want = dict(zero, ray_hits_pinhole_scenes=1 + 2 * n_poses, min_sq_dists_scenes=n_poses,
+                bfs_field_scenes=R * any_regen, extract_path_scenes=R * any_regen)
+    if (built != dict(zero, ray_hits=B) or run_l != want or batch.host_reads != n_poses
+            or batch.replays != {"pre": n_poses, "plan": any_regen, "post": n_poses}):
+        raise AssertionError(f"true batch: construction {built} (expected K2 {B}), run "
+                             f"{run_l} (expected {want}), replays {batch.replays}, host reads "
+                             f"{batch.host_reads}")
+    batch_l = dict(after)
+    batch._use_graphs = False
+    eager = batch.run(n_poses=n_poses, seed=seed)
+    batch._use_graphs = True
+    same = all(e.coverage_evolution == g.coverage_evolution
+               and np.array_equal(e.cam_positions, g.cam_positions)
+               and e.n_points == g.n_points for e, g in zip(eager, res))
+    log(f"phase 10(a) true batch captured vs eager: bit for bit {same}")
+    if not same or batch.regen_poses != flags:
+        raise AssertionError("the captured true batch differs from the eager one")
+    singles = [ScanRollout(a, seeded_nbp(), params=params, scene=sc, device=dev)
+               for a, sc in zip(scenes, batch.scenes)]
+    solo = []
+    for i, r in enumerate(singles):
+        r.run(n_poses=MAIN_PATH_WARMUP_POSES, seed=seed + i)
+        solo.append((r.run(n_poses=n_poses, seed=seed + i), list(r.regen_poses)))
+    parted = []
+    for i, ((s_res, s_flags), b_res) in enumerate(zip(solo, res)):
+        if (s_res.coverage_evolution != b_res.coverage_evolution
+                or not np.array_equal(s_res.cam_positions, b_res.cam_positions)
+                or s_flags != [f[i] for f in flags]):
+            diff = [k for k in range(n_poses)
+                    if s_res.coverage_evolution[k] != b_res.coverage_evolution[k]]
+            parted.append((i, diff[:1], s_flags))
+    log(f"phase 10(a) true batch vs {B} single captured ScanRollouts: same trajectories and "
+        f"coverage {not parted} (parted: {parted})")
+    if parted:
+        raise AssertionError(f"the true batch parts from single runs: {parted}")
+
+    # (b) run_interleaved over the four captured single rollouts.
+    kernels.reset_launch_counts()
+    inter = run_interleaved(singles, n_poses=n_poses, seed=seed)
+    inter_l = dict(kernels.LAUNCHES)
+    same = all(x.coverage_evolution == s.coverage_evolution
+               and np.array_equal(x.cam_positions, s.cam_positions)
+               for x, (s, _) in zip(inter, solo))
+    log(f"phase 10(b) run_interleaved over {B} captured ScanRollouts: bit for bit against "
+        f"single runs {same}, {inter[0].wall_time_s / n_poses * 1e3:.2f} ms a pose of {B} "
+        f"scenes, host reads {[r.host_reads for r in singles]}, launches {inter_l}")
+    if not same or inter_l["min_sq_dists"] != B * n_poses:
+        raise AssertionError("run_interleaved differs from single runs")
+
+    # (c) ScanRandomWalk as graphs against eager.
+    kernels.reset_launch_counts()
+    walk = ScanRandomWalk(scenes, params=params, device=dev)
+    walk.run(n_poses=MAIN_PATH_WARMUP_POSES, seed=seed)
+    w_setup = dict(kernels.LAUNCHES)
+    w_res = walk.run(n_poses=n_poses, seed=seed)
+    walk_l = dict(kernels.LAUNCHES)
+    w_run = {k: walk_l[k] - w_setup[k] for k in walk_l}
+    reads, replays = walk.host_reads, dict(walk.replays)
+    walk._use_graphs = False
+    w_eager = walk.run(n_poses=n_poses, seed=seed)
+    same = all(a.coverage_evolution == b.coverage_evolution
+               and np.array_equal(a.cam_positions, b.cam_positions)
+               for a, b in zip(w_res, w_eager))
+    log(f"phase 10(c) ScanRandomWalk, {B} scenes, {n_poses} poses as one graph a pose: "
+        f"{w_res[0].wall_time_s / n_poses * 1e3:.2f} ms a pose of {B} scenes, host reads "
+        f"{reads}, replays {replays}, coverage "
+        f"{[[round(c, 4) for c in r.coverage_evolution] for r in w_res]}; captured vs eager "
+        f"bit for bit {same}; launches {w_run}")
+    for i, r in enumerate(w_res):
+        rises(f"walk scene {i}", r.coverage_evolution)
+    if (not same or reads != 0 or replays != {"pose": n_poses}
+            or w_run != dict(zero, ray_hits_pinhole_scenes=n_poses + 1,
+                             min_sq_dists_scenes=n_poses)):
+        raise AssertionError(f"ScanRandomWalk: launches {w_run}, reads {reads}")
+    del batch, singles, walk
+    torch.cuda.empty_cache()
+
+    # (d) Aggregate poses/s at B = 4 and 8, three modes; and the folded
+    # f32 U-Net's forward at the batches the true batch runs, called
+    # eagerly (kernels.device_ms: a call whose host time outlasts its
+    # device time reads as its host time) and replayed as a CUDA graph, as
+    # the true batch's plan runs it (device time alone).
+    from nextbestpath_tpu_torch.models.fold import fold_bn
+    folded = fold_bn(seeded_nbp()).to(dev).eval()
+    x = torch.rand(8, 256, 256, 5, generator=torch.Generator().manual_seed(0)).to(dev)
+    unet_ms = {}
+    with torch.no_grad():
+        for b in (1, 2, 4, 8):
+            xb = x[:b].contiguous()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                folded(xb)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                folded(xb)
+            unet_ms[b] = (kernels.device_ms(lambda xb=xb: folded(xb), 3),
+                          kernels.device_ms(graph.replay, 5))
+            del graph
+    log(f"phase 10(d) folded f32 U-Net forward ms (256x256x5, eager / as a graph) "
+        f"[{smi}]: " + ", ".join(f"batch {b} {e:.2f} / {g:.2f}"
+                                 for b, (e, g) in unet_ms.items()))
+    del folded, x
+    for n_b in (4, 8):
+        sc_b = padded_scenes(params, n_b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rolls = [ScanRollout(a, seeded_nbp(), params=params, device=dev) for a in sc_b]
+        for i, r in enumerate(rolls):
+            r.run(n_poses=MAIN_PATH_WARMUP_POSES, seed=seed + i)
+        rates = {}
+        seq = [r.run(n_poses=30, seed=seed + 100 + i) for i, r in enumerate(rolls)]
+        rates["sequential"] = n_b * 30 / sum(x.wall_time_s for x in seq)
+        rates["interleaved"] = run_interleaved(rolls, n_poses=30, seed=seed + 100)[0].steps_per_sec
+        peak_single = torch.cuda.max_memory_allocated() / 2 ** 20
+        del rolls
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tb = BatchedScanRollout(sc_b, seeded_nbp(), params=params, device=dev)
+        tb.run(n_poses=MAIN_PATH_WARMUP_POSES, seed=seed)
+        out = tb.run(n_poses=30, seed=seed + 100)
+        rates["true batch"] = out[0].steps_per_sec
+        peak_batch = torch.cuda.max_memory_allocated() / 2 ** 20
+        any_b = sum(any(f) for f in tb.regen_poses)
+        del tb
+        torch.cuda.empty_cache()
+        log(f"phase 10(d) B = {n_b}, 30 poses [{smi}]: aggregate poses/s "
+            + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
+            + f"; true batch any-regeneration poses {any_b} of 30; peak memory {peak_single:.0f} "
+              f"MiB ({n_b} ScanRollouts) and {peak_batch:.0f} MiB (true batch)")
+
+    # (e) A small batched rollout on the card against the CPU.
+    from nextbestpath_tpu_torch.assets import (generate_scene, pack_generated_scene,
+                                               pad_assets_to_common)
+    s_pair = pad_assets_to_common([pack_generated_scene(generate_scene("simple", seed=s),
+                                                        params=small) for s in (4, 5)])
+    runs = {}
+    for d in ("cuda", "cpu"):
+        b2 = BatchedScanRollout(s_pair, seeded_nbp(), params=small, device=d,
+                                make_draws=lambda s, d=d: TorchDraws(s, torch.device(d), "cpu"))
+        runs[d] = (b2.run(n_poses=8, seed=4), b2.regen_poses)
+    (g, gf), (c, cf) = runs["cuda"], runs["cpu"]
+    diff = max(abs(x - y) for a, b in zip(g, c)
+               for x, y in zip(a.coverage_evolution, b.coverage_evolution))
+    same = gf == cf and all(a.cam_positions.shape == b.cam_positions.shape
+                            and float(np.abs(a.cam_positions - b.cam_positions).max()) < 1e-4
+                            for a, b in zip(g, c))
+    log(f"phase 10(e) small true batch (2 padded scenes, 32x56, 8 poses) card vs CPU: flags "
+        f"{gf}, coverage max diff {diff:.2e}, same decisions {same}")
+    if diff > TOL_COVERAGE or not same:
+        raise AssertionError("the card's small true batch disagrees with the CPU's")
+    log(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return {"batch": batch_l, "interleaved": inter_l, "walk": walk_l}
 
 
 def phase9_card_vs_cpu(small, s_assets):
@@ -1164,6 +1574,7 @@ def main() -> int:
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, no-FMA ceiling "
             f"{r['ceiling_ms']:.4f} ms, library {r['library_ms']}) at {r['shape']}")
     rows += plan_kernel_rows(assets, soa, n_tris, int(params.max_path_len), dev)
+    rows += scene_kernel_rows(params, intr, dev)
     k1_row, k3_row = rows[0], rows[2]
     log(f"  ray_hits_pinhole: {k1_row['ms_per_frame']:.4f} ms a frame in the "
         f"{n_steps}-frame launch; one frame alone {k1_row['b1_ms']:.4f} ms (plain "
@@ -1199,7 +1610,8 @@ def main() -> int:
     # held against the first.
     rises("rollout", cov)
     for name, k in launches.items():
-        if k <= 0:
+        # The scene-axis launchers run on phase 10's path, not this one.
+        if k <= 0 and not name.endswith("_scenes"):
             raise AssertionError(f"kernel {name} was not launched on the main path")
     want_launches = {"ray_hits_pinhole": 1 + 2 * n_poses, "ray_hits": 1,
                      "min_sq_dists": n_poses}
@@ -1264,9 +1676,9 @@ def main() -> int:
         f"launches: construction and warm-up {setup}, run {run_launches}")
     rises("scan rollout", cov)
     retries = scan.max_plan_retries
-    want_run = {"ray_hits_pinhole": 1 + 2 * n_poses, "ray_hits": 0,
-                "min_sq_dists": n_poses, "bfs_field": retries * n_regen,
-                "extract_path": retries * n_regen}
+    want_run = dict(dict.fromkeys(kernels.LAUNCHES, 0),
+                    ray_hits_pinhole=1 + 2 * n_poses, min_sq_dists=n_poses,
+                    bfs_field=retries * n_regen, extract_path=retries * n_regen)
     want_replays = {"pre": n_poses, "plan": n_regen, "post": n_poses}
     if (run_launches != want_run or setup["ray_hits"] != 1 or n_regen < 1
             or scan.replays != want_replays or scan.host_reads != n_poses):
@@ -1279,8 +1691,6 @@ def main() -> int:
         key = r["name"]
         r["launches"] = launches[key] + scan_launches[key]
         r["launches_by_path"] = {"host": launches[key], "scan": scan_launches[key]}
-        if r["launches"] <= 0:
-            raise AssertionError(f"kernel {key} was launched on no main path")
 
     # The captured step against the same step run eagerly on the card and
     # on the CPU, on the small configuration with one CPU generator's draws.
@@ -1296,10 +1706,15 @@ def main() -> int:
     # step, the driver with a resume, the card against the CPU.
     by_path["scan_train"] = scan_train_phase(params, assets, small, s_assets, dev, smi,
                                              f32_train)
+    # 10. Several scenes on one card: the true batch, run_interleaved and
+    # the batched random walk; the three modes' rates at B = 4 and 8.
+    by_path.update(multi_scene_phase(params, small, dev, smi))
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]
             r["launches"] += counts[r["name"]]
+        if r["launches"] <= 0:
+            raise AssertionError(f"kernel {r['name']} was launched on no main path")
 
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -37,6 +37,12 @@
 //   plain version whatever order the blocks run in. The entry point fills
 //   the output with 1e30 first (a count of 0 leaves it so).
 //
+// The scene axis (JAX vmaps K3 over stacked scenes: (B, G, 3) GT, (B, S, 3)
+// samples and a count a scene): grid (GT blocks, splits, B), block z reading
+// its scene's rows and its count on the device, so a capture sees no host
+// value. The split is chosen for the B x GT blocks of the launch, and the
+// fill covers B x G. A single scene is B = 1.
+//
 // P = 8 GT points a thread, 128 threads: at 20000 x 40960 that is 20 x 33
 // blocks of 1242 samples, 5 to an SM. Of the register tiles tried on the
 // card, P = 8 was fastest at the full count, which 99 of a rollout's 101
@@ -64,7 +70,11 @@ min_sq_dist_kernel(const float* __restrict__ g, int n_g,
                    const int* __restrict__ s_count_p,
                    float* __restrict__ out) {
   __shared__ float4 tile[TILE];
-  const int n = clamp_count(s_count_p, n_s);
+  const size_t scene = blockIdx.z;
+  g += scene * n_g * 3;
+  s += scene * n_s * 3;
+  out += scene * n_g;
+  const int n = clamp_count(s_count_p + scene, n_s);
   const int s0 = blockIdx.y * chunk;
   if (s0 >= n) return;
   const int s1 = min(s0 + chunk, n);
@@ -108,14 +118,15 @@ min_sq_dist_kernel(const float* __restrict__ g, int n_g,
   }
 }
 
-// The tiling for n_g GT points against a capacity of n_s samples on a card
-// of n_sm SMs: tiling[0] GT points a block, tiling[1] samples a split,
-// tiling[2] splits. Of the split counts that give 4 to 8 blocks an SM (all
-// resident at once: a block is 4 warps), it takes the one whose blocks share
-// out most evenly over the SMs, each split at least MIN_CHUNK samples long.
-extern "C" void nbp_min_sq_dists_tiling(int n_g, int n_s, int n_sm,
+// The tiling for n_b scenes of n_g GT points against a capacity of n_s
+// samples on a card of n_sm SMs: tiling[0] GT points a block, tiling[1]
+// samples a split, tiling[2] splits. Of the split counts that give 4 to 8
+// blocks an SM (all resident at once: a block is 4 warps), it takes the one
+// whose blocks share out most evenly over the SMs, each split at least
+// MIN_CHUNK samples long.
+extern "C" void nbp_min_sq_dists_tiling(int n_b, int n_g, int n_s, int n_sm,
                                         int* tiling) {
-  const int gx = std::max(1, (n_g + P * THREADS - 1) / (P * THREADS));
+  const int gx = std::max(1, n_b * ((n_g + P * THREADS - 1) / (P * THREADS)));
   const int most = std::max(1, (n_s + MIN_CHUNK - 1) / MIN_CHUNK);
   const int lo = std::min(most, std::max(1, (4 * n_sm + gx - 1) / gx));
   const int hi = std::min(most, std::max(lo, 8 * n_sm / gx));
@@ -135,16 +146,22 @@ extern "C" void nbp_min_sq_dists_tiling(int n_g, int n_s, int n_sm,
   tiling[2] = std::max(1, (n_s + chunk - 1) / chunk);
 }
 
-extern "C" int nbp_min_sq_dists(const void* g, int n_g, const void* s,
-                                int n_s, const void* s_count, void* out,
-                                void* stream) {
+// n_b scenes: g (n_b, n_g, 3), s (n_b, n_s, 3), s_count (n_b,) on the
+// device -> out (n_b, n_g). Refuses (cudaErrorInvalidValue) n_b outside
+// [1, 65535], the grid's z limit.
+extern "C" int nbp_min_sq_dists(const void* g, int n_b, int n_g,
+                                const void* s, int n_s, const void* s_count,
+                                void* out, void* stream) {
+  if (n_b < 1 || n_b > 65535) return (int)cudaErrorInvalidValue;
   if (n_g > 0) {
     cudaStream_t st = (cudaStream_t)stream;
-    fill_kernel<<<(n_g + 255) / 256, 256, 0, st>>>((float*)out, n_g, NO_SAMPLE);
+    const int n_out = n_b * n_g;
+    fill_kernel<<<(n_out + 255) / 256, 256, 0, st>>>((float*)out, n_out,
+                                                      NO_SAMPLE);
     int tiling[3];
-    nbp_min_sq_dists_tiling(n_g, n_s, sm_count(), tiling);
+    nbp_min_sq_dists_tiling(n_b, n_g, n_s, sm_count(), tiling);
     if (n_s > 0) {
-      const dim3 grid((n_g + tiling[0] - 1) / tiling[0], tiling[2]);
+      const dim3 grid((n_g + tiling[0] - 1) / tiling[0], tiling[2], n_b);
       min_sq_dist_kernel<<<grid, THREADS, 0, st>>>(
           (const float*)g, n_g, (const float*)s, n_s, tiling[1],
           (const int*)s_count, (float*)out);

@@ -28,6 +28,11 @@
 // walks (the walk is sequential: each step depends on the node before), and
 // the block writes the path out.
 //
+// The scene axis (the JAX package vmaps its batched plan over scenes): one
+// block a scene, block b reading lattice b of blocked (B, 4, L, H), start
+// or goal row b of (B, 2), and writing dist (B, L, H), path (B, max_len, 2)
+// and meta (B, 2). The limits hold for each scene; a single scene is B = 1.
+//
 // What bounds them on an H100: latency. A 17 x 17 lattice is 289 nodes; a
 // sweep is about 16 integer operations a node and the field needs about as
 // many sweeps as the start's eccentricity, some 10^5 operations, under a
@@ -53,6 +58,10 @@ bfs_field_kernel(const unsigned char* __restrict__ blocked,
   // in_ok[c]: bit d set when node c may be entered from c - DIRS[d].
   __shared__ unsigned char in_ok[PLAN_MAX_NODES];
   const int n = L * H;
+  const size_t scene = blockIdx.x;
+  blocked += scene * 4 * n;
+  start += scene * 2;
+  dist_out += scene * n;
   const long long s0 = start[0], s1 = start[1];
   for (int c = threadIdx.x; c < n; c += blockDim.x) {
     const int i = c / H, j = c - (c / H) * H;
@@ -100,6 +109,12 @@ extract_path_kernel(const int* __restrict__ dist_in,
   __shared__ int rev[PLAN_MAX_PATH][2];
   __shared__ int s_gd, s_len;
   const int n = L * H;
+  const size_t scene = blockIdx.x;
+  dist_in += scene * n;
+  blocked += scene * 4 * n;
+  goal += scene * 2;
+  path += scene * 2 * max_len;
+  meta += scene * 2;
   for (int c = threadIdx.x; c < n; c += blockDim.x) dist[c] = dist_in[c];
   for (int c = threadIdx.x; c < 4 * n; c += blockDim.x) blk[c] = blocked[c];
   for (int k = threadIdx.x; k < max_len; k += blockDim.x) {
@@ -155,25 +170,26 @@ extern "C" void nbp_plan_limits(int* out) {
   out[1] = PLAN_MAX_PATH;
 }
 
-// Both refuse (cudaErrorInvalidValue) a lattice past PLAN_MAX_NODES nodes
-// or a path buffer past PLAN_MAX_PATH.
-extern "C" int nbp_bfs_field(const void* blocked, const void* start, int L,
-                             int H, void* dist, void* stream) {
-  if (L <= 0 || H <= 0 || L * H > PLAN_MAX_NODES)
+// Both take n_b scenes and refuse (cudaErrorInvalidValue) n_b < 1, a
+// lattice past PLAN_MAX_NODES nodes or a path buffer past PLAN_MAX_PATH.
+extern "C" int nbp_bfs_field(const void* blocked, const void* start, int n_b,
+                             int L, int H, void* dist, void* stream) {
+  if (n_b < 1 || L <= 0 || H <= 0 || L * H > PLAN_MAX_NODES)
     return (int)cudaErrorInvalidValue;
-  bfs_field_kernel<<<1, BFS_THREADS, 0, (cudaStream_t)stream>>>(
+  bfs_field_kernel<<<n_b, BFS_THREADS, 0, (cudaStream_t)stream>>>(
       (const unsigned char*)blocked, (const long long*)start, L, H,
       (int*)dist);
   return (int)cudaGetLastError();
 }
 
 extern "C" int nbp_extract_path(const void* dist, const void* blocked,
-                                const void* goal, int L, int H, int max_len,
-                                void* path, void* meta, void* stream) {
-  if (L <= 0 || H <= 0 || L * H > PLAN_MAX_NODES || max_len <= 0 ||
+                                const void* goal, int n_b, int L, int H,
+                                int max_len, void* path, void* meta,
+                                void* stream) {
+  if (n_b < 1 || L <= 0 || H <= 0 || L * H > PLAN_MAX_NODES || max_len <= 0 ||
       max_len > PLAN_MAX_PATH)
     return (int)cudaErrorInvalidValue;
-  extract_path_kernel<<<1, PATH_THREADS, 0, (cudaStream_t)stream>>>(
+  extract_path_kernel<<<n_b, PATH_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)dist, (const unsigned char*)blocked,
       (const long long*)goal, L, H, max_len, (int*)path, (int*)meta);
   return (int)cudaGetLastError();

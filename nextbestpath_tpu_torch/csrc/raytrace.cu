@@ -41,6 +41,12 @@
 //   Passes are rare (a ray's line crosses a few of the triangles), and a
 //   warp's 32 neighbouring pixels pass alike.
 // - Grid (ray blocks, B): a move's four frames are one launch.
+// - The scene axis (JAX vmaps K1 over stacked scenes, one triangle count a
+//   scene): frame b reads its count at n_tris[b * count_stride]. A stride
+//   of 0 gives every frame the one count; a stride of 1 gives each frame
+//   its own, so B scenes padded to a common F each stop at their own
+//   count, and the launch costs the sum over the scenes, not B times the
+//   largest. The padded rows past a count are never read.
 //
 // The fold: a hit that counts has t = t_num / det > t_min >= 0, so det has
 // the sign s of t_num, which is one value a triangle. The staging multiplies
@@ -102,9 +108,9 @@ constexpr int K1_TILE = 256;
 __global__ void __launch_bounds__(K1_THREADS)
 ray_pinhole_kernel(const float* __restrict__ dirs, int n_rays,
                    const float* __restrict__ soa, int f,
-                   const int* __restrict__ n_tris_p, float t_min, float t_max,
-                   float* __restrict__ t_out, int* __restrict__ cnt_out,
-                   int* __restrict__ idx_out) {
+                   const int* __restrict__ n_tris_p, int count_stride,
+                   float t_min, float t_max, float* __restrict__ t_out,
+                   int* __restrict__ cnt_out, int* __restrict__ idx_out) {
   __shared__ float4 tile[3 * (K1_TILE + 1)];
   const size_t frame = blockIdx.y;
   dirs += frame * n_rays * 3;
@@ -114,7 +120,7 @@ ray_pinhole_kernel(const float* __restrict__ dirs, int n_rays,
   const float dx = dirs[3 * rc], dy = dirs[3 * rc + 1], dz = dirs[3 * rc + 2];
   float t_best = NBP_INF;
   int cnt = 0, best = -1;
-  const int n_tris = clamp_count(n_tris_p, f);
+  const int n_tris = clamp_count(n_tris_p + frame * count_stride, f);
   for (int base = 0; base < n_tris; base += K1_TILE) {
     const int m = min(K1_TILE, n_tris - base);
     __syncthreads();
@@ -266,19 +272,23 @@ static void launch_general(const void* origins, const void* dirs, int n_rays,
       (int*)idx_out);
 }
 
-// Refuses (cudaErrorInvalidValue) a negative t_min, which the fold forbids.
+// n_tris holds one count (count_stride 0) or one a frame (count_stride 1).
+// Refuses (cudaErrorInvalidValue) a negative t_min, which the fold forbids,
+// and a stride other than 0 or 1.
 extern "C" int nbp_ray_hits_pinhole(const void* dirs, int n_frames,
                                     int n_rays, const void* soa, int f,
-                                    const void* n_tris, float t_min,
-                                    float t_max, void* t_out, void* cnt_out,
-                                    void* idx_out, void* stream) {
-  if (!(t_min >= 0.f)) return (int)cudaErrorInvalidValue;
+                                    const void* n_tris, int count_stride,
+                                    float t_min, float t_max, void* t_out,
+                                    void* cnt_out, void* idx_out,
+                                    void* stream) {
+  if (!(t_min >= 0.f) || count_stride < 0 || count_stride > 1)
+    return (int)cudaErrorInvalidValue;
   if (n_rays > 0 && n_frames > 0) {
     const dim3 grid((n_rays + K1_THREADS - 1) / K1_THREADS, n_frames);
     ray_pinhole_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)dirs, n_rays, (const float*)soa, f,
-        (const int*)n_tris, t_min, t_max, (float*)t_out, (int*)cnt_out,
-        (int*)idx_out);
+        (const int*)n_tris, count_stride, t_min, t_max, (float*)t_out,
+        (int*)cnt_out, (int*)idx_out);
   }
   return (int)cudaGetLastError();
 }

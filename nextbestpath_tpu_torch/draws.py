@@ -37,6 +37,13 @@ orientations' uniforms), ``u`` (the rotation override's ``uniform``),
 ``rot`` (its ``randint``) and ``move``; ``init`` serves the initial
 capture (the JAX ``k0``). Every role is drawn every pose.
 
+The batched random walk (``eval/random_walk.py::ScanRandomWalk``) takes
+the role schedule with the roles of the JAX walk step's 5-way split
+(``state.key`` and four keys): ``cov``, ``dir`` (the open neighbour's
+Gumbel noise, served by ``gumbel``: ``jax.random.categorical``), ``rot``
+and ``move``; ``init`` serves the initial capture. Every role is drawn
+every pose, and a scene has its own provider.
+
 In both schedules ``step`` folds a substep's index into its group's key
 (``fold_in(key, s)``), and ``uniforms`` serves several draws from the split
 of one key (``k1, k2 = split(key)``, the stratified frame draw).

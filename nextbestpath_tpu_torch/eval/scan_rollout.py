@@ -38,16 +38,17 @@ JAX class's capture options; their draws are static buffers too.
 ``run(..., variables=model)`` (or ``load_weights``) runs new weights: they
 are folded and copied into the tensors the graphs were captured over.
 
-``BatchedScanRollout`` runs several same-lattice scenes padded to common
-triangle and GT sizes (``pad_scene_arrays``; the coverage metric masks
-the padded GT rows). Unlike the JAX class, which vmaps the step over a
-scene axis, it runs the scenes one after another through one captured
-``ScanRollout``, copying each scene's arrays into the tensors its graphs
-read; the scenes share its one folded weight copy. Not ported:
-``segment_len`` (a TPU watchdog workaround that gives identical results),
-the ``ablate`` profiling switch (the stage ranges of
-``torch.profiler.record_function`` take its place), the batched U-Net
-forward over the scenes, ``mesh`` sharding and ``run_interleaved``.
+Several scenes on one card, as the JAX module's two single-device modes:
+``BatchedScanRollout`` (JAX ``make_batched_step``) runs same-lattice scenes
+padded to common triangle and GT sizes (``pad_scene_arrays``; the coverage
+metric masks the padded GT rows) on a scene axis: one U-Net forward of
+batch B on a pose where any scene regenerates, and one launch of K1, K3 and
+each planner kernel for all scenes (``kernels.*_scenes``).
+``run_interleaved`` steps several captured ``ScanRollout``s a pose at a
+time, so that one scene's flag read overlaps the others' replays. Not
+ported: ``segment_len`` (a TPU watchdog workaround that gives identical
+results), the ``ablate`` profiling switch (the stage ranges of
+``torch.profiler.record_function`` take its place) and ``mesh`` sharding.
 """
 
 from __future__ import annotations
@@ -68,16 +69,20 @@ from ..draws import TorchDraws, frame_draws
 from ..geometry.cameras import CameraIntrinsics
 from ..models.fold import fold_bn as fold_bn_model
 from ..models.unet import NBP
-from ..ops.coverage import compute_auc, coverage_percentage
+from ..ops.coverage import (compute_auc, coverage_percentage,
+                            coverage_percentage_scenes)
 from ..ops.raytrace import tris_to_soa
 from ..ops.scatter2d import height_bins
 from ..planning.candidates import score_candidates_test
 from ..planning.grid_paths import (DIRS, EDGE_COLLISION, EDGE_PASSABLE,
                                    apply_edge_memo, bfs_distance_field,
-                                   extract_path, layout_edge_blocked,
+                                   bfs_distance_field_scenes, extract_path,
+                                   extract_path_scenes, layout_edge_blocked,
                                    pick_orientations)
-from ..sim.rollout import TrajectoryBuffer, move_and_capture, observe_current
-from ..sim.sensor import PointBuffer, stratified_applies
+from ..sim.rollout import (TrajectoryBuffer, append_move, interpolate_move,
+                           move_and_capture, observe_current)
+from ..sim.sensor import (PointBuffer, backproject_sample,
+                          capture_depth_scenes, stratified_applies)
 from ..sim.tables import build_scene_tables
 from .nbp_planning import (RolloutResult, build_plan_projections,
                            fuse_layout_from_projections, select_goal)
@@ -332,17 +337,30 @@ class GraphSteps:
         kernels.count_replay(self.graph_launches[name])
         self.replays[name] += 1
 
-    def _read_flags(self, flags: torch.Tensor) -> torch.Tensor:
-        """Device bool flags on the host: on the card a copy of a few bytes
-        into pinned memory, the pose's one sync."""
+    def _start_flag_read(self, flags: torch.Tensor) -> None:
+        """Start the copy of device bool flags to the host: on the card a
+        copy of a few bytes into pinned memory behind the queued work,
+        marked by an event; ``_finish_flag_read`` waits for it."""
+        self._flags_n = flags.numel()
         if not self._use_graphs:
-            return flags.cpu()
-        n = flags.numel()
-        self._flags_host[:n].copy_(flags, non_blocking=True)
+            self._flags_host_eager = flags.cpu()
+            return
+        self._flags_host[:self._flags_n].copy_(flags, non_blocking=True)
         self._flags_read.record()
+
+    def _finish_flag_read(self) -> torch.Tensor:
+        """The flags of the last ``_start_flag_read`` on the host; on the
+        card this waits for its event (the pose's one sync)."""
+        if not self._use_graphs:
+            return self._flags_host_eager
         self._flags_read.synchronize()
         self.host_reads += 1
-        return self._flags_host[:n]
+        return self._flags_host[:self._flags_n]
+
+    def _read_flags(self, flags: torch.Tensor) -> torch.Tensor:
+        """Device bool flags on the host, read at once."""
+        self._start_flag_read(flags)
+        return self._finish_flag_read()
 
     def _begin_run(self) -> None:
         self.replays = dict.fromkeys(self.STEPS, 0)
@@ -427,18 +445,6 @@ class ScanRollout(GraphSteps):
             move_ranks=z((self.n_steps, self.n_slots), torch.float32)
             if self.stratified else None)
 
-    # -- scenes --------------------------------------------------------------
-
-    def set_scene(self, assets: SceneAssets, scene: SceneArrays) -> None:
-        """Another scene of the same lattice and padded sizes for the next
-        runs: its arrays are copied into the ones the graphs read."""
-        if (assets.pose_l, assets.pose_h, assets.n_azim) != (
-                self.L, self.H, self.A):
-            raise ValueError("set_scene needs a scene of the same lattice")
-        self.scene.copy_(scene)
-        self._elev.fill_(float(assets.elevations_deg[2]))
-        self.assets = assets
-
     # -- helpers -------------------------------------------------------------
 
     def _capture_kw(self):
@@ -477,6 +483,15 @@ class ScanRollout(GraphSteps):
     def _init_state(self, draws) -> None:
         """The initial state in place: empty buffers, the start pose, and the
         initial captures (a full interpolation from the start to itself)."""
+        pose0 = self._reset_state()
+        scores, ranks = self._init_draws(draws)
+        move_and_capture(self.scene.tri_soa, self.scene.n_tris, pose0, pose0,
+                         self.state.pc, self.state.traj, scores, self.intr,
+                         frame_ranks=ranks, **self._move_kw())
+
+    def _reset_state(self) -> torch.Tensor:
+        """Empty buffers and memos and the start pose, visited; returns the
+        start pose (5,)."""
         s = self.state
         for t in (s.pc._storage, s.pc.count, s.traj._storage, s.traj.count,
                   s.has_prev, s.path, s.path_len, s.path_record, s.edge_memo,
@@ -487,15 +502,15 @@ class ScanRollout(GraphSteps):
                                   int(start[4])], dtype=torch.int64))
         s.prev.copy_(s.cur)
         self._visit(s.cur)
-        pose0 = self._pose5(s.cur)
+        return self._pose5(s.cur)
+
+    def _init_draws(self, draws):
+        """The initial capture's frame draws: (scores, ranks or None)."""
         frames = [self._frame(draws, "init", step=k)
                   for k in range(1, self.n_steps + 1)]
-        move_and_capture(self.scene.tri_soa, self.scene.n_tris, pose0, pose0,
-                         s.pc, s.traj, [f[0].to(self.device) for f in frames],
-                         self.intr,
-                         frame_ranks=([f[1].to(self.device) for f in frames]
-                                      if self.stratified else None),
-                         **self._move_kw())
+        return ([f[0].to(self.device) for f in frames],
+                [f[1].to(self.device) for f in frames]
+                if self.stratified else None)
 
     def _visit(self, idx3: torch.Tensor) -> None:
         flat = (idx3[0] * self.H + idx3[1]) * self.A + idx3[2]
@@ -531,12 +546,18 @@ class ScanRollout(GraphSteps):
             cov = coverage_percentage(sc.gt, s.pc.points, s.pc.count,
                                       d.cov_start, d.cov_stride,
                                       gt_valid=sc.gt_valid)
-            self.cov_curve.index_copy_(0, s.pose_i.reshape(1), cov.reshape(1))
         cur_pose5 = self._pose5(s.cur)
         with record_function("observe"):
             observe_current(sc.tri_soa, sc.n_tris, cur_pose5, s.pc, d.obs,
                             self.intr, frame_ranks=d.obs_ranks,
                             **self._capture_kw())
+        self._pre_logic(cov, cur_pose5)
+
+    def _pre_logic(self, cov: torch.Tensor, cur_pose5: torch.Tensor) -> None:
+        """The pose's coverage into the curve, then the regeneration
+        decision and the edge memos into ``pre`` and the state."""
+        s, sc, pre = self.state, self.scene, self.pre
+        self.cov_curve.index_copy_(0, s.pose_i.reshape(1), cov.reshape(1))
         P = s.path.shape[0]
         exhausted = s.path_record >= s.path_len
         cand = _at(s.path, s.path_record.clamp(0, P - 1))
@@ -561,15 +582,26 @@ class ScanRollout(GraphSteps):
     def _plan_fields(self):
         """The retry-independent half of the plan: projections, U-Net,
         layout fusion, scoring, edge blocking (JAX ``_plan_fields``)."""
+        model_input, *proj = self._plan_input()
+        with record_function("unet"):
+            value_map, obstacle_map = self.model(model_input)
+        return self._plan_maps(value_map, obstacle_map, *proj)
+
+    def _plan_input(self):
+        """The one-pass projections: (model_input (1, S, S, 5), traj_img,
+        proj, filt)."""
+        p, s = self.params, self.state
+        with record_function("projections"):
+            return build_plan_projections(
+                s.pc, s.traj, self.pre.cur_pose5, self.scene.y_bins,
+                n_pieces=int(p.n_pieces), img_size=int(p.pc2img_size[0]))
+
+    def _plan_maps(self, value_map, obstacle_map, traj_img, proj, filt):
+        """The U-Net's maps (batch 1) fused with the projections: (scores,
+        layout_blocked, value map (S', S', A))."""
         p, s, sc = self.params, self.state, self.scene
         S = int(p.pc2img_size[0])
         cam = self.pre.cur_pose5
-        with record_function("projections"):
-            model_input, traj_img, proj, filt = build_plan_projections(
-                s.pc, s.traj, cam, sc.y_bins, n_pieces=int(p.n_pieces),
-                img_size=S)
-        with record_function("unet"):
-            value_map, obstacle_map = self.model(model_input)
         layout, proj256 = fuse_layout_from_projections(
             obstacle_map[0, :, :, 0], proj, filt, traj_img)
         scores = score_candidates_test(
@@ -584,14 +616,21 @@ class ScanRollout(GraphSteps):
         done), done when a path was found or nothing is reachable; a
         first-segment GT collision is memoised and leaves done False (JAX
         ``_plan_attempt``)."""
-        s, sc, L, H = self.state, self.scene, self.L, self.H
-        cur_lh = s.cur[:2]
-        cam = self.pre.cur_pose5
+        L, H = self.L, self.H
         blocked = apply_edge_memo(layout_blocked, memo)
-        dist = bfs_distance_field(blocked, cur_lh, L, H)
+        dist = bfs_distance_field(blocked, self.state.cur[:2], L, H)
         goal, found = select_goal(scores, dist, L, H)
         path_arr, plen, _ = extract_path(dist, blocked, goal, L, H,
                                          max_len=self.max_len)
+        return self._attempt_finish(path_arr, plen, found, vm0, memo)
+
+    def _attempt_finish(self, path_arr, plen, found, vm0, memo):
+        """An attempt's path (max_len, 2) and length turned into (memo',
+        path, path_len, done): the orientations and the first segment's GT
+        collision test."""
+        s, sc = self.state, self.scene
+        cur_lh = s.cur[:2]
+        cam = self.pre.cur_pose5
         valid = torch.arange(self.max_len, device=self.device) < plen
         rots = pick_orientations(
             path_arr, valid, vm0, sc.positions, cam[:3], s.visited_rot,
@@ -635,6 +674,18 @@ class ScanRollout(GraphSteps):
         """The move (JAX ``_post``): next index, anti-revisit, the move's
         frames, the state update."""
         s, d, sc, pre = self.state, self.pose_draws, self.scene, self.pre
+        nxt, path_record = self._post_next()
+        with record_function("move"):
+            move_and_capture(sc.tri_soa, sc.n_tris, pre.cur_pose5,
+                             self._pose5(nxt), s.pc, s.traj, d.move, self.intr,
+                             frame_ranks=d.move_ranks, **self._move_kw())
+        self._post_update(nxt, path_record)
+
+    def _post_next(self):
+        """The next pose (3,) and the path record: the path's next waypoint
+        or, with no path, a random rotation in place; a revisited (position,
+        rotation) gets the anti-revisit rotation."""
+        s, d, pre = self.state, self.pose_draws, self.pre
         P = s.path.shape[0]
         path_record = torch.where(pre.regen, 0, s.path_record)
         no_path = s.path_len == 0
@@ -646,10 +697,11 @@ class ScanRollout(GraphSteps):
                       nxt[1].clamp(0, self.H - 1), nxt[2].clamp(0, self.A - 1))
         nxt = torch.stack([nxt[0], nxt[1],
                            torch.where(revisit & ~no_path, d.rot2, nxt[2])])
-        with record_function("move"):
-            move_and_capture(sc.tri_soa, sc.n_tris, pre.cur_pose5,
-                             self._pose5(nxt), s.pc, s.traj, d.move, self.intr,
-                             frame_ranks=d.move_ranks, **self._move_kw())
+        return nxt, path_record
+
+    def _post_update(self, nxt: torch.Tensor, path_record: torch.Tensor
+                     ) -> None:
+        s = self.state
         self._visit(nxt)
         s.prev.copy_(s.cur)
         s.cur.copy_(nxt)
@@ -657,11 +709,45 @@ class ScanRollout(GraphSteps):
         s.path_record.copy_(path_record + 1)
         s.pose_i.add_(1)
 
-    def _regen_flag(self) -> bool:
-        """The regeneration flag on the host: the pose's one sync."""
-        return bool(self._read_flags(self.pre.regen.reshape(1))[0])
-
     # -- the rollout ---------------------------------------------------------
+
+    def _start_run(self, n_poses: int, seed: int,
+                   variables: Optional[NBP]):
+        """A run's set-up: new weights, the draws, the static state (and,
+        on a first run, the capture), the initial captures. Returns the
+        provider."""
+        if variables is not None:
+            self.load_weights(variables)
+        draws = self.draws if self.draws is not None else TorchDraws(
+            seed, self.device)
+        self._ensure_capacity(n_poses)
+        if self._use_graphs and not self._graphs:
+            self._capture()
+        self._init_state(draws)
+        self._begin_run()
+        self.regen_poses = []
+        return draws
+
+    def _plan_and_post(self, draws, regen: bool) -> None:
+        """The rest of a pose once its flag is on the host: the plan's draws
+        and replay when it is set, then the move."""
+        if regen:
+            self.pose_draws.plan.copy_(
+                draws.uniform("plan", (self.max_len, self.A)))
+            self._step("plan")
+        self._step("post")
+        self.regen_poses.append(regen)
+
+    def _result(self, n_poses: int) -> RolloutResult:
+        """The run's curve, trajectory and points on the host; the clock's
+        fields are set by ``_stop_clock``."""
+        s = self.state
+        coverage = self.cov_curve[:n_poses].cpu().numpy()
+        return RolloutResult(
+            coverage_evolution=[float(c) for c in coverage],
+            auc=compute_auc(coverage),
+            cam_positions=s.traj.xyz[:int(s.traj.count)].cpu().numpy(),
+            wall_time_s=0.0, n_points=int(s.pc.count), steps_per_sec=0.0)
 
     @torch.no_grad()
     def run(self, n_poses: int = 101, seed: int = 8,
@@ -673,52 +759,137 @@ class ScanRollout(GraphSteps):
         the device, to the read of the coverage curve and the trajectory,
         after a final sync; state set-up and, on a run that needs them, the
         graphs' capture come before it."""
-        if variables is not None:
-            self.load_weights(variables)
-        draws = self.draws if self.draws is not None else TorchDraws(
-            seed, self.device)
-        self._ensure_capacity(n_poses)
-        if self._use_graphs and not self._graphs:
-            self._capture()
-        self._init_state(draws)
-        d = self.pose_draws
-        regen_poses = []
-        self._begin_run()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        draws = self._start_run(n_poses, seed, variables)
+        _sync(self.device)
         t1 = time.perf_counter()
         for _ in range(n_poses):
             self._draw_pose(draws)
             self._step("pre")
-            regen = self._regen_flag()
-            if regen:
-                d.plan.copy_(draws.uniform("plan", (self.max_len, self.A)))
-                self._step("plan")
-            self._step("post")
-            regen_poses.append(regen)
-        s = self.state
-        coverage = self.cov_curve[:n_poses].cpu().numpy()
-        cam = s.traj.xyz[:int(s.traj.count)].cpu().numpy()
-        n_points = int(s.pc.count)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = time.perf_counter() - t1
-        self.regen_poses = regen_poses
-        return RolloutResult(
-            coverage_evolution=[float(c) for c in coverage],
-            auc=compute_auc(coverage), cam_positions=cam, wall_time_s=wall,
-            n_points=n_points, steps_per_sec=n_poses / wall)
+            regen = bool(self._read_flags(self.pre.regen.reshape(1))[0])
+            self._plan_and_post(draws, regen)
+        return _stop_clock([self._result(n_poses)], t1, n_poses,
+                           self.device)[0]
 
 
-class BatchedScanRollout:
-    """Rollouts of several same-lattice scenes (JAX ``BatchedScanRollout``).
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
-    The scenes are padded to common triangle and GT sizes and run one after
-    another through one ``ScanRollout`` (so one capture and one folded
-    weight copy serve them all); scene i's draws come from seed + i, as in
-    the JAX class. make_draws(seed), when given, makes scene i's provider
-    (the tests inject the JAX key schedule so). Results equal per-scene
-    ``ScanRollout`` runs on the padded arrays."""
+
+def _stop_clock(results: List[RolloutResult], t1: float, n_poses: int,
+                device: torch.device) -> List[RolloutResult]:
+    """After a final sync, each result's wall time is the clock since t1
+    and its rate counts every result's poses (the aggregate rate)."""
+    _sync(device)
+    wall = time.perf_counter() - t1
+    for res in results:
+        res.wall_time_s = wall
+        res.steps_per_sec = len(results) * n_poses / wall
+    return results
+
+
+@torch.no_grad()
+def run_interleaved(rollouts: Sequence[ScanRollout], n_poses: int = 101,
+                    seed: int = 8, variables: Optional[NBP] = None,
+                    seeds: Optional[Sequence[int]] = None
+                    ) -> List[RolloutResult]:
+    """Several scenes on one card, a pose of each in turn (JAX
+    ``run_interleaved``), each through its own ``ScanRollout`` with its own
+    state and graphs.
+
+    Each pose draws and replays ``pre`` for every scene and starts each
+    scene's flag copy behind it; then, scene by scene, it waits for that
+    scene's flags, replays ``plan`` when set, and replays ``post``. A
+    scene's flag read thus overlaps the device work queued behind it.
+    Results are bit-identical to ``ScanRollout.run`` of the same scene and
+    draws. ``seeds`` (one a scene) overrides ``seed + i``; ``variables``
+    (an unfolded NBP) goes into every rollout first. Every result's
+    ``wall_time_s`` is the shared clock, and ``steps_per_sec`` the
+    aggregate ``len(rollouts) * n_poses / wall``. The JAX ``segment_len``
+    (a TPU watchdog's knob) is not ported."""
+    if seeds is None:
+        seeds = [seed + i for i in range(len(rollouts))]
+    draws = [r._start_run(n_poses, s, variables)
+             for r, s in zip(rollouts, seeds)]
+    for r in rollouts:
+        _sync(r.device)
+    t1 = time.perf_counter()
+    for _ in range(n_poses):
+        for r, d in zip(rollouts, draws):
+            r._draw_pose(d)
+            r._step("pre")
+            r._start_flag_read(r.pre.regen.reshape(1))
+        for r, d in zip(rollouts, draws):
+            r._plan_and_post(d, bool(r._finish_flag_read()[0]))
+    return _stop_clock([r._result(n_poses) for r in rollouts], t1, n_poses,
+                       rollouts[0].device)
+
+
+def stack_scenes(scenes: Sequence[SceneArrays]) -> SceneArrays:
+    """Padded same-shape scenes stacked on a leading scene axis."""
+    return SceneArrays(*[torch.stack(ts).contiguous()
+                         for ts in zip(*[sc.tensors() for sc in scenes])])
+
+
+def scene_row(scenes: SceneArrays, b: int) -> SceneArrays:
+    """Scene b of stacked scenes, as views."""
+    return SceneArrays(*[t[b] for t in scenes.tensors()])
+
+
+def stacked_buffers(n_scenes: int, capacity: int, device, cls):
+    """A stacked storage (B, capacity + 1, 3) and counts (B,) int32, and
+    a buffer of type cls (PointBuffer or TrajectoryBuffer) over each row."""
+    storage = torch.zeros((n_scenes, capacity + 1, 3), dtype=torch.float32,
+                          device=device)
+    count = torch.zeros(n_scenes, dtype=torch.int32, device=device)
+    return storage, count, [cls.over(storage[b], count[b])
+                            for b in range(n_scenes)]
+
+
+def render_moves(scenes: SceneArrays, old5: torch.Tensor,
+                 new5: torch.Tensor, n_steps: int, n_azim: int,
+                 intr: CameraIntrinsics):
+    """The frames of B moves (old5, new5 (B, 5)) in stacked scenes, rendered
+    in one K1 launch: (zbufs (B, n_steps, H, W), R, T, poses
+    (B, n_steps, 5))."""
+    poses = torch.stack([interpolate_move(o, n, n_steps, n_azim)
+                         for o, n in zip(old5, new5)])
+    zb, R, T = capture_depth_scenes(scenes.tri_soa, scenes.n_tris, poses,
+                                    intr)
+    return zb, R, T, poses
+
+
+class BatchedScanRollout(GraphSteps):
+    """Rollouts of several same-lattice scenes with a true scene axis (JAX
+    ``BatchedScanRollout`` and ``ScanRollout.make_batched_step``).
+
+    The scenes are padded to common triangle and GT sizes
+    (``pad_scene_arrays``; ``scenes`` keeps them, ``scene`` holds them
+    stacked) and their state is stacked on a leading scene axis. A pose is
+    three CUDA graphs over all B scenes (eagerly on the CPU):
+
+    * ``pre``: the B coverages in one K3 launch, the B loop-start frames in
+      one K1 launch, then each scene's regeneration decision and memos;
+    * ``plan``, replayed when any scene's flag is set (JAX's scalar
+      ``lax.cond(any_regen)``): each scene's projections, one
+      (B, S, S, 5) U-Net forward, each scene's fusion and scoring, then
+      ``max_plan_retries`` attempts, each one ``nbp_bfs_field`` and one
+      ``nbp_extract_path`` launch for the B lattices, every scene masked
+      once it is done, as its own single-scene loop; a scene that did not
+      regenerate keeps its memo and path (JAX's per-scene selects);
+    * ``post``: each scene's next pose, the B x n_steps move frames in one
+      K1 launch, and each scene's appends and state update.
+
+    One read of the B regeneration flags a pose is its one sync. Scene i's
+    draws come from ``make_draws(seed + i)`` (default ``TorchDraws``), and
+    a plan's draws are taken only for the scenes whose flag is set, so each
+    scene's stream is that of its single-scene ``ScanRollout`` run. The
+    decisions, and so the coverage curve, the trajectory and the point
+    count, equal the single-scene runs'; the U-Net at batch B may differ
+    from batch 1 in the last bit. The per-scene work runs through one
+    ``ScanRollout`` a scene (``members``) whose state, scene arrays and
+    weights are views of the stacked ones and of the one folded ``model``.
+    """
 
     def __init__(self, assets_list: Sequence[SceneAssets], model: NBP,
                  params: Optional[Params] = None, max_plan_retries: int = 4,
@@ -727,38 +898,198 @@ class BatchedScanRollout:
                  device: DeviceLike = "cuda"):
         if not assets_list:
             raise ValueError("BatchedScanRollout needs at least one scene")
-        dev = resolve_device(device)
+        self.device = dev = resolve_device(device)
         p = params or default_params()
         f_max, g_max = common_sizes(assets_list)
+        self.params = p
         self.assets_list = list(assets_list)
         self.n_scenes = len(self.assets_list)
+        self.make_draws = make_draws
+        self.max_plan_retries = int(max_plan_retries)
+        self._fold_bn = fold_bn
+        self.model = (fold_bn_model(model) if fold_bn else model).to(dev).eval()
         self.scenes = [pad_scene_arrays(scene_arrays_from_assets(
             a, n_pieces=int(p.n_pieces), device=dev), f_max, g_max)
             for a in self.assets_list]
-        self.rollout = ScanRollout(self.assets_list[0], model, params=p,
-                                   max_plan_retries=max_plan_retries,
-                                   fold_bn=fold_bn, scene=self.scenes[0],
-                                   device=dev)
-        self.make_draws = make_draws
-        self.p = p
+        self.scene = stack_scenes(self.scenes)
+        self.members = [ScanRollout(a, self.model, params=p,
+                                    max_plan_retries=max_plan_retries,
+                                    fold_bn=False, scene=sc, device=dev)
+                        for a, sc in zip(self.assets_list, self.scenes)]
+        for b, m in enumerate(self.members):
+            m.scene = scene_row(self.scene, b)
+        m0 = self.members[0]
+        self.intr, self.L, self.H, self.A = m0.intr, m0.L, m0.H, m0.A
+        self.n_steps, self.max_len = m0.n_steps, m0.max_len
+        self._init_graphs(self.n_scenes)
+        self.regen = torch.zeros(self.n_scenes, dtype=torch.bool, device=dev)
+        self.state = None
+        self._pose_cap = 0
+        # The last run's flags, a list of B bools a pose.
+        self.regen_poses: List[List[bool]] = []
 
+    def _ensure_capacity(self, n_poses: int) -> None:
+        """Stacked static state for n_poses, each member's state a view of
+        scene b's rows; a larger rollout reallocates and drops the graphs."""
+        if self.state is not None and n_poses <= self._pose_cap:
+            return
+        B, dev = self.n_scenes, self.device
+        cap = max(int(n_poses), MIN_POSE_CAPACITY)
+        pc_st, pc_n, pcs = stacked_buffers(
+            B, int(self.params.full_pc_capacity), dev, PointBuffer)
+        tr_st, tr_n, trs = stacked_buffers(B, 8 * (cap + 4), dev,
+                                           TrajectoryBuffer)
+        # The fields' shapes and types, from a state of capacity 1.
+        one = ScanState.create(1, 1, self.max_len, self.L, self.H, self.A,
+                               dev)
+        fields = {f.name: torch.zeros((B, *getattr(one, f.name).shape),
+                                      dtype=getattr(one, f.name).dtype,
+                                      device=dev)
+                  for f in dataclasses.fields(ScanState)
+                  if f.name not in ("pc", "traj")}
+        self.state = dict(fields, pc=pc_st, pc_count=pc_n, traj=tr_st,
+                          traj_count=tr_n)
+        self.cov_curve = torch.zeros((B, cap), dtype=torch.float32,
+                                     device=dev)
+        for b, m in enumerate(self.members):
+            m.state = ScanState(pc=pcs[b], traj=trs[b],
+                                **{k: v[b] for k, v in fields.items()})
+            m.cov_curve = self.cov_curve[b]
+            m._pose_cap = cap
+        self._pose_cap = cap
+        self._graphs = {}
+
+    def _init_state(self, draws) -> None:
+        """Each scene's initial state, its initial captures in one K1
+        launch for the B x n_steps frames."""
+        pose0 = torch.stack([m._reset_state() for m in self.members])
+        frames = [m._init_draws(d) for m, d in zip(self.members, draws)]
+        self._moves(pose0, pose0, [f[0] for f in frames],
+                    [f[1] for f in frames])
+
+    def _moves(self, old5: torch.Tensor, new5: torch.Tensor, scores,
+               ranks) -> None:
+        """B moves (old5, new5 (B, 5)): their frames rendered in one K1
+        launch, then each scene's frames appended."""
+        zb, R, T, poses = render_moves(self.scene, old5, new5, self.n_steps,
+                                       self.A, self.intr)
+        for b, m in enumerate(self.members):
+            append_move(zb[b], R[b], T[b], poses[b], m.state.pc, m.state.traj,
+                        scores[b], self.intr, frame_ranks=ranks[b],
+                        batched=m.batched_capture, **m._capture_kw())
+
+    # -- the step ------------------------------------------------------------
+
+    def _pre_step(self) -> None:
+        """B coverages (one K3 launch), B loop-start frames (one K1 launch),
+        then each scene's regeneration decision and memos."""
+        ms, st, sc = self.members, self.state, self.scene
+        d = [m.pose_draws for m in ms]
+        with record_function("coverage"):
+            covs = coverage_percentage_scenes(
+                sc.gt, st["pc"][:, :-1], st["pc_count"],
+                torch.stack([x.cov_start for x in d]),
+                torch.stack([x.cov_stride for x in d]), sc.gt_valid)
+        cur5 = torch.stack([m._pose5(m.state.cur) for m in ms])
+        with record_function("observe"):
+            zb, R, T = capture_depth_scenes(sc.tri_soa, sc.n_tris,
+                                            cur5[:, None], self.intr)
+            for b, m in enumerate(ms):
+                m.state.pc.append(backproject_sample(
+                    zb[b, 0], R[b, 0], T[b, 0], self.intr, d[b].obs,
+                    ranks_u=d[b].obs_ranks, **m._capture_kw()))
+        for b, m in enumerate(ms):
+            m._pre_logic(covs[b], cur5[b])
+        self.regen.copy_(torch.stack([m.pre.regen for m in ms]))
+
+    def _plan_step(self) -> None:
+        """Every scene's plan with one U-Net forward of batch B and one
+        launch of each planner kernel an attempt; kept where the scene
+        regenerates."""
+        ms, B = self.members, self.n_scenes
+        L, H = self.L, self.H
+        with record_function("plan"):
+            inputs = [m._plan_input() for m in ms]
+            with record_function("unet"):
+                vmaps, omaps = self.model(torch.cat([x[0] for x in inputs]))
+            fields = [m._plan_maps(vmaps[b:b + 1], omaps[b:b + 1],
+                                   *inputs[b][1:])
+                      for b, m in enumerate(ms)]
+            start = torch.stack([m.state.cur[:2] for m in ms])
+            memo = [m.state.edge_memo for m in ms]
+            path = [torch.zeros_like(m.state.path) for m in ms]
+            plen = [torch.zeros_like(m.state.path_len) for m in ms]
+            done = [torch.zeros((), dtype=torch.bool, device=self.device)
+                    for _ in ms]
+            for _ in range(self.max_plan_retries):
+                blocked = torch.stack([apply_edge_memo(f[1], mm)
+                                       for f, mm in zip(fields, memo)])
+                dist = bfs_distance_field_scenes(blocked, start, L, H)
+                goals = [select_goal(f[0], dist[b], L, H)
+                         for b, f in enumerate(fields)]
+                path_arr, lens, _ = extract_path_scenes(
+                    dist, blocked, torch.stack([g[0] for g in goals]), L, H,
+                    max_len=self.max_len)
+                for b, m in enumerate(ms):
+                    m2, p2, l2, d2 = m._attempt_finish(
+                        path_arr[b], lens[b], goals[b][1], fields[b][2],
+                        memo[b])
+                    memo[b] = torch.where(done[b], memo[b], m2)
+                    path[b] = torch.where(done[b], path[b], p2)
+                    plen[b] = torch.where(done[b], plen[b], l2)
+                    done[b] = done[b] | d2
+            for b, m in enumerate(ms):
+                s, regen = m.state, m.pre.regen
+                s.edge_memo.copy_(torch.where(regen, memo[b], s.edge_memo))
+                s.path.copy_(torch.where(regen, path[b], s.path))
+                s.path_len.copy_(torch.where(regen, plen[b], s.path_len))
+
+    def _post_step(self) -> None:
+        """Each scene's next pose, the B moves' frames in one K1 launch,
+        each scene's appends and state update."""
+        ms = self.members
+        nxt = [m._post_next() for m in ms]
+        with record_function("move"):
+            self._moves(torch.stack([m.pre.cur_pose5 for m in ms]),
+                        torch.stack([m._pose5(n[0]) for m, n in zip(ms, nxt)]),
+                        [m.pose_draws.move for m in ms],
+                        [m.pose_draws.move_ranks for m in ms])
+        for m, (n, record) in zip(ms, nxt):
+            m._post_update(n, record)
+
+    # -- the rollout ---------------------------------------------------------
+
+    @torch.no_grad()
     def run(self, n_poses: int = 101, seed: int = 8,
             variables: Optional[NBP] = None) -> List[RolloutResult]:
         """One rollout a scene, scene i from seed + i; ``variables`` (an
         unfolded NBP) replaces the weights first. Each result's wall time is
         the whole batch's, and its rate counts every scene's poses."""
-        r = self.rollout
         if variables is not None:
-            r.load_weights(variables)
-        results = []
-        for i, (assets, scene) in enumerate(zip(self.assets_list,
-                                                self.scenes)):
-            r.set_scene(assets, scene)
-            r.draws = (self.make_draws(seed + i)
-                       if self.make_draws is not None else None)
-            results.append(r.run(n_poses=n_poses, seed=seed + i))
-        wall = sum(res.wall_time_s for res in results)
-        for res in results:
-            res.wall_time_s = wall
-            res.steps_per_sec = self.n_scenes * n_poses / wall
-        return results
+            self.load_weights(variables)
+        draws = [self.make_draws(seed + i) if self.make_draws is not None
+                 else TorchDraws(seed + i, self.device)
+                 for i in range(self.n_scenes)]
+        self._ensure_capacity(n_poses)
+        if self._use_graphs and not self._graphs:
+            self._capture()
+        self._init_state(draws)
+        self._begin_run()
+        self.regen_poses = []
+        _sync(self.device)
+        t1 = time.perf_counter()
+        for _ in range(n_poses):
+            for m, d in zip(self.members, draws):
+                m._draw_pose(d)
+            self._step("pre")
+            flags = [bool(f) for f in self._read_flags(self.regen)]
+            if any(flags):
+                for m, d, f in zip(self.members, draws, flags):
+                    if f:
+                        m.pose_draws.plan.copy_(
+                            d.uniform("plan", (self.max_len, self.A)))
+                self._step("plan")
+            self._step("post")
+            self.regen_poses.append(flags)
+        return _stop_clock([m._result(n_poses) for m in self.members], t1,
+                           n_poses, self.device)

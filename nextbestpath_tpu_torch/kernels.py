@@ -10,6 +10,11 @@ Each launcher takes CUDA tensors, checks them, launches on PyTorch's current
 stream, adds one to its count in ``LAUNCHES`` and raises if the launch was
 refused. It never falls back to a plain version: those live beside the
 dispatching wrappers in ``ops/`` and are taken only for CPU tensors.
+
+K1, K3 and the planner kernels also launch with a leading scene axis (the
+``*_scenes`` launchers, counted apart): the batched rollouts' one launch for
+B scenes, each with its own triangle count, sample count, lattice, start or
+goal, where the JAX package vmaps the single-scene kernel.
 """
 
 from __future__ import annotations
@@ -34,7 +39,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launch counts, one per kernel; only a real launch adds to them.
 LAUNCHES: Dict[str, int] = {"ray_hits_pinhole": 0, "ray_hits": 0,
                             "min_sq_dists": 0, "bfs_field": 0,
-                            "extract_path": 0}
+                            "extract_path": 0, "ray_hits_pinhole_scenes": 0,
+                            "min_sq_dists_scenes": 0,
+                            "bfs_field_scenes": 0,
+                            "extract_path_scenes": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -43,14 +51,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "nbp_ray_hits_pinhole": [_P, _I, _I, _P, _I, _P, _F, _F, _P, _P, _P,
-                             _P],
+    "nbp_ray_hits_pinhole": [_P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P,
+                             _P, _P],
     "nbp_ray_hits": [_P, _P, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P],
     "nbp_ray_hits_lanes": [_I, _I],
-    "nbp_min_sq_dists": [_P, _I, _P, _I, _P, _P, _P],
-    "nbp_min_sq_dists_tiling": [_I, _I, _I, _P],
-    "nbp_bfs_field": [_P, _P, _I, _I, _P, _P],
-    "nbp_extract_path": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "nbp_min_sq_dists": [_P, _I, _I, _P, _I, _P, _P, _P],
+    "nbp_min_sq_dists_tiling": [_I, _I, _I, _I, _P],
+    "nbp_bfs_field": [_P, _P, _I, _I, _I, _P, _P],
+    "nbp_extract_path": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "nbp_plan_limits": [_P],
 }
 _NO_RESULT = ("nbp_min_sq_dists_tiling", "nbp_plan_limits")
@@ -178,31 +186,51 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _pinhole_launch(dirs, ph_soa, nt, count_stride, t_min, t_max):
+    """K1 over B frames with one count (count_stride 0) or one a frame
+    (count_stride 1)."""
+    if not t_min >= 0.0:
+        raise ValueError(f"t_min must be >= 0 for the pinhole kernel, got "
+                         f"{t_min}")
+    _check(dirs, "dirs", torch.float32, (None, None, 3))
+    _check(ph_soa, "ph_soa", torch.float32, (dirs.shape[0], 10, None))
+    _check(nt, "n_tris", torch.int32,
+           (dirs.shape[0] if count_stride else 1,))
+    lib = build()
+    dev = dirs.device
+    b, n = dirs.shape[0], dirs.shape[1]
+    t = torch.empty((b, n), dtype=torch.float32, device=dev)
+    cnt = torch.empty((b, n), dtype=torch.int32, device=dev)
+    idx = torch.empty((b, n), dtype=torch.int32, device=dev)
+    err = lib.nbp_ray_hits_pinhole(
+        dirs.data_ptr(), b, n, ph_soa.data_ptr(), ph_soa.shape[2],
+        nt.data_ptr(), count_stride, float(t_min), float(t_max),
+        t.data_ptr(), cnt.data_ptr(), idx.data_ptr(), _stream(dev))
+    _raise_on(err, "nbp_ray_hits_pinhole")
+    return t, cnt, idx
+
+
 def ray_hits_pinhole(dirs: torch.Tensor, ph_soa: torch.Tensor, n_tris,
                      t_min: float, t_max: float):
     """K1 launch over B frames: dirs (B, N, 3) f32, pinhole SoA (B, 10, F)
     f32, one triangle count for all frames -> (t, cnt, idx), each (B, N).
     t_min must be >= 0: the kernel folds each triangle's sign into its data,
     which holds only for hits in front of the origin."""
-    if not t_min >= 0.0:
-        raise ValueError(f"t_min must be >= 0 for the pinhole kernel, got "
-                         f"{t_min}")
-    _check(dirs, "dirs", torch.float32, (None, None, 3))
-    _check(ph_soa, "ph_soa", torch.float32, (dirs.shape[0], 10, None))
-    lib = build()
-    dev = dirs.device
-    b, n = dirs.shape[0], dirs.shape[1]
-    nt = _count_tensor(n_tris, dev)
-    t = torch.empty((b, n), dtype=torch.float32, device=dev)
-    cnt = torch.empty((b, n), dtype=torch.int32, device=dev)
-    idx = torch.empty((b, n), dtype=torch.int32, device=dev)
-    err = lib.nbp_ray_hits_pinhole(
-        dirs.data_ptr(), b, n, ph_soa.data_ptr(), ph_soa.shape[2],
-        nt.data_ptr(), float(t_min), float(t_max), t.data_ptr(),
-        cnt.data_ptr(), idx.data_ptr(), _stream(dev))
-    _raise_on(err, "nbp_ray_hits_pinhole")
+    out = _pinhole_launch(dirs, ph_soa, _count_tensor(n_tris, dirs.device),
+                          0, t_min, t_max)
     LAUNCHES["ray_hits_pinhole"] += 1
-    return t, cnt, idx
+    return out
+
+
+def ray_hits_pinhole_scenes(dirs: torch.Tensor, ph_soa: torch.Tensor,
+                            n_tris: torch.Tensor, t_min: float, t_max: float):
+    """K1 launch with a triangle count a frame: dirs (B, N, 3), pinhole SoA
+    (B, 10, F) and n_tris (B,) int32 on the card (frames of several scenes
+    padded to one F; frame b stops at its own count) -> (t, cnt, idx), each
+    (B, N). t_min >= 0 as for ``ray_hits_pinhole``."""
+    out = _pinhole_launch(dirs, ph_soa, n_tris, 1, t_min, t_max)
+    LAUNCHES["ray_hits_pinhole_scenes"] += 1
+    return out
 
 
 def ray_hits(origins: torch.Tensor, dirs: torch.Tensor, soa: torch.Tensor,
@@ -236,29 +264,53 @@ def ray_hits_lanes(n_rays: int, device=None) -> int:
     return int(lib.nbp_ray_hits_lanes(int(n_rays), _sm_count(device)))
 
 
+def _min_sq_launch(g: torch.Tensor, s: torch.Tensor, counts: torch.Tensor):
+    """g (B, G, 3), s (B, S, 3), counts (B,) int32 -> (B, G)."""
+    lib = build()
+    dev = g.device
+    n_b, n_g, n_s = g.shape[0], g.shape[1], s.shape[1]
+    out = torch.empty((n_b, n_g), dtype=torch.float32, device=dev)
+    err = lib.nbp_min_sq_dists(g.data_ptr(), n_b, n_g, s.data_ptr(), n_s,
+                               counts.data_ptr(), out.data_ptr(),
+                               _stream(dev))
+    _raise_on(err, "nbp_min_sq_dists")
+    return out
+
+
 def min_sq_dists(g: torch.Tensor, s: torch.Tensor, s_count) -> torch.Tensor:
     """K3 launch: g (G, 3), sentinel-masked samples s (S, 3), valid-prefix
     length s_count -> (G,) min squared distance (1e30 for none)."""
     _check(g, "gt", torch.float32, (None, 3))
     _check(s, "samples", torch.float32, (None, 3))
-    lib = build()
-    dev = g.device
-    sc = _count_tensor(s_count, dev)
-    out = torch.empty(g.shape[0], dtype=torch.float32, device=dev)
-    err = lib.nbp_min_sq_dists(g.data_ptr(), g.shape[0], s.data_ptr(),
-                               s.shape[0], sc.data_ptr(), out.data_ptr(),
-                               _stream(dev))
-    _raise_on(err, "nbp_min_sq_dists")
+    out = _min_sq_launch(g[None], s[None], _count_tensor(s_count, g.device))
     LAUNCHES["min_sq_dists"] += 1
+    return out[0]
+
+
+def min_sq_dists_scenes(g: torch.Tensor, s: torch.Tensor,
+                        s_counts: torch.Tensor) -> torch.Tensor:
+    """K3 launch over B scenes: g (B, G, 3), sentinel-masked samples s
+    (B, S, 3) and valid-prefix lengths s_counts (B,) int32 on the card ->
+    (B, G), scene b's row bit-equal to ``min_sq_dists`` of its own."""
+    _check(g, "gt", torch.float32, (None, None, 3))
+    _check(s, "samples", torch.float32, (g.shape[0], None, 3))
+    _check(s_counts, "s_counts", torch.int32, (g.shape[0],))
+    if not 1 <= g.shape[0] <= 65535:
+        raise ValueError(f"K3 takes 1 to 65535 scenes, got {g.shape[0]}")
+    out = _min_sq_launch(g, s, s_counts)
+    LAUNCHES["min_sq_dists_scenes"] += 1
     return out
 
 
-def min_sq_dists_tiling(n_g: int, n_s: int, device=None) -> Dict[str, int]:
-    """K3's tiling for n_g GT points against a capacity of n_s samples on
-    the card: GT points a block, samples a split, and splits."""
+def min_sq_dists_tiling(n_g: int, n_s: int, device=None,
+                        n_scenes: int = 1) -> Dict[str, int]:
+    """K3's tiling for n_scenes scenes of n_g GT points against a capacity
+    of n_s samples on the card: GT points a block, samples a split, and
+    splits."""
     lib = build()
     out = (ctypes.c_int * 3)()
-    lib.nbp_min_sq_dists_tiling(int(n_g), int(n_s), _sm_count(device), out)
+    lib.nbp_min_sq_dists_tiling(int(n_scenes), int(n_g), int(n_s),
+                                _sm_count(device), out)
     return {"points_per_block": out[0], "chunk": out[1], "splits": out[2]}
 
 
@@ -282,22 +334,56 @@ def _check_lattice(L: int, H: int, max_len: Optional[int] = None) -> None:
                          f"{max_len}")
 
 
+def _bfs_launch(blocked: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """blocked (B, 4, L, H) bool, start (B, 2) int64 -> (B, L, H) int32."""
+    n_b, L, H = blocked.shape[0], blocked.shape[2], blocked.shape[3]
+    _check_lattice(L, H)
+    lib = build()
+    dev = blocked.device
+    dist = torch.empty((n_b, L, H), dtype=torch.int32, device=dev)
+    err = lib.nbp_bfs_field(blocked.data_ptr(), start.data_ptr(), n_b, L, H,
+                            dist.data_ptr(), _stream(dev))
+    _raise_on(err, "nbp_bfs_field")
+    return dist
+
+
 def bfs_field(blocked: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     """nbp_bfs_field launch: blocked (4, L, H) bool, start (2,) int64 ->
     (L, H) int32 unit-cost distances (INF = 2^20 unreachable). Raises
     ValueError for a lattice past the kernel's limit (``plan_limits``)."""
     _check(blocked, "blocked", torch.bool, (4, None, None))
     _check(start, "start", torch.int64, (2,))
-    L, H = blocked.shape[1], blocked.shape[2]
-    _check_lattice(L, H)
-    lib = build()
-    dev = blocked.device
-    dist = torch.empty((L, H), dtype=torch.int32, device=dev)
-    err = lib.nbp_bfs_field(blocked.data_ptr(), start.data_ptr(), L, H,
-                            dist.data_ptr(), _stream(dev))
-    _raise_on(err, "nbp_bfs_field")
+    dist = _bfs_launch(blocked[None], start[None])
     LAUNCHES["bfs_field"] += 1
+    return dist[0]
+
+
+def bfs_field_scenes(blocked: torch.Tensor, start: torch.Tensor
+                     ) -> torch.Tensor:
+    """nbp_bfs_field over B lattices, one block a scene: blocked
+    (B, 4, L, H) bool, start (B, 2) int64 -> (B, L, H) int32. The limits
+    of ``plan_limits`` hold for each scene."""
+    _check(blocked, "blocked", torch.bool, (None, 4, None, None))
+    _check(start, "start", torch.int64, (blocked.shape[0], 2))
+    dist = _bfs_launch(blocked, start)
+    LAUNCHES["bfs_field_scenes"] += 1
     return dist
+
+
+def _path_launch(dist, blocked, goal, max_len: int):
+    """dist (B, L, H), blocked (B, 4, L, H), goal (B, 2) -> path
+    (B, max_len, 2) int32, meta (B, 2) int32."""
+    n_b, L, H = dist.shape
+    _check_lattice(L, H, max_len)
+    lib = build()
+    dev = dist.device
+    path = torch.empty((n_b, max_len, 2), dtype=torch.int32, device=dev)
+    meta = torch.empty((n_b, 2), dtype=torch.int32, device=dev)
+    err = lib.nbp_extract_path(dist.data_ptr(), blocked.data_ptr(),
+                               goal.data_ptr(), n_b, L, H, int(max_len),
+                               path.data_ptr(), meta.data_ptr(), _stream(dev))
+    _raise_on(err, "nbp_extract_path")
+    return path, meta
 
 
 def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
@@ -310,17 +396,23 @@ def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
     L, H = dist.shape
     _check(blocked, "blocked", torch.bool, (4, L, H))
     _check(goal, "goal", torch.int64, (2,))
-    _check_lattice(L, H, max_len)
-    lib = build()
-    dev = dist.device
-    path = torch.empty((max_len, 2), dtype=torch.int32, device=dev)
-    meta = torch.empty(2, dtype=torch.int32, device=dev)
-    err = lib.nbp_extract_path(dist.data_ptr(), blocked.data_ptr(),
-                               goal.data_ptr(), L, H, int(max_len),
-                               path.data_ptr(), meta.data_ptr(), _stream(dev))
-    _raise_on(err, "nbp_extract_path")
+    path, meta = _path_launch(dist[None], blocked[None], goal[None], max_len)
     LAUNCHES["extract_path"] += 1
-    return path, meta
+    return path[0], meta[0]
+
+
+def extract_path_scenes(dist: torch.Tensor, blocked: torch.Tensor,
+                        goal: torch.Tensor, max_len: int):
+    """nbp_extract_path over B lattices, one block a scene: dist (B, L, H)
+    int32, blocked (B, 4, L, H) bool, goal (B, 2) int64 -> (path
+    (B, max_len, 2) int32, meta (B, 2) int32)."""
+    _check(dist, "dist", torch.int32, (None, None, None))
+    n_b, L, H = dist.shape
+    _check(blocked, "blocked", torch.bool, (n_b, 4, L, H))
+    _check(goal, "goal", torch.int64, (n_b, 2))
+    out = _path_launch(dist, blocked, goal, max_len)
+    LAUNCHES["extract_path_scenes"] += 1
+    return out
 
 
 def device_ms(fn, reps: int, warmup: int = 2) -> float:

@@ -11,6 +11,8 @@ host rollout and the random walk).
 ``min_dists`` launches kernel K3 (``csrc/coverage.cu``) for CUDA tensors and
 takes its plain version, ``min_sq_dists_plain``, for CPU tensors. Both take
 squared distances from the f32 differences, summed in index order.
+``coverage_percentage_scenes`` is the stride metric of B scenes with one K3
+launch on a scene axis (``min_sq_dists_scenes_plain`` on the CPU).
 """
 
 from __future__ import annotations
@@ -60,6 +62,14 @@ def min_sq_dists_plain(g: torch.Tensor, s: torch.Tensor, s_count
             b = torch.minimum(b, d2.amin(dim=1))
         best[g0:g0 + g_rows] = b
     return best
+
+
+def min_sq_dists_scenes_plain(g: torch.Tensor, s: torch.Tensor,
+                              s_counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's scene axis: g (B, G, 3), s (B, S, 3), s_counts
+    (B,) -> (B, G), row b ``min_sq_dists_plain`` of scene b."""
+    return torch.stack([min_sq_dists_plain(gb, sb, int(c)) for gb, sb, c
+                        in zip(g, s, s_counts.tolist())])
 
 
 def min_dists(gt: torch.Tensor, pts: torch.Tensor, pts_valid: torch.Tensor,
@@ -166,6 +176,37 @@ def coverage_percentage(gt: torch.Tensor, pts: torch.Tensor,
     idx, valid = stride_subsample(start, stride_half, count, n_sample)
     return _coverage_of_sample(gt, pts, count, idx, valid, threshold,
                                gt_valid)
+
+
+def coverage_percentage_scenes(gt: torch.Tensor, pts: torch.Tensor,
+                               counts: torch.Tensor, starts: torch.Tensor,
+                               stride_halves: torch.Tensor,
+                               gt_valid: torch.Tensor, threshold: float = 1.0,
+                               weight: int = 2) -> torch.Tensor:
+    """``coverage_percentage`` of B scenes at once: gt (B, G, 3) and gt_valid
+    (B, G) padded to one G, buffers pts (B, C, 3) with counts (B,) int32,
+    the draws starts and stride_halves (B,). The B stride samples go to one
+    K3 launch on a scene axis (its plain version on the CPU). Returns (B,)
+    f32, entry b bit-equal to scene b's own call with its gt_valid."""
+    n_sample = n_sample_for(gt.shape[1], pts.shape[1], weight)
+    samples = []
+    for b in range(gt.shape[0]):
+        idx, valid = stride_subsample(starts[b], stride_halves[b], counts[b],
+                                      n_sample)
+        p = pts[b][idx].to(torch.float32)
+        samples.append(torch.where(valid[:, None], p,
+                                   torch.full_like(p, _S_SENTINEL)))
+    s = torch.stack(samples).contiguous()
+    g = gt.to(torch.float32).contiguous()
+    c = counts.to(torch.int32).contiguous()
+    if g.device.type == "cpu":
+        d2 = min_sq_dists_scenes_plain(g, s, c)
+    else:
+        d2 = kernels.min_sq_dists_scenes(g, s, c)
+    dmin = torch.sqrt(torch.clamp(d2, min=0.0))
+    close = (dmin < threshold).to(torch.float32) * gt_valid
+    cov = close.sum(dim=1) / torch.clamp(gt_valid.sum(dim=1), min=1)
+    return torch.where(counts > 0, cov, torch.zeros_like(cov))
 
 
 def coverage_percentage_exact(gt: torch.Tensor, pts: torch.Tensor,

@@ -158,6 +158,17 @@ def ray_hits_pinhole_plain(dirs: torch.Tensor, ph_soa: torch.Tensor, n_tris,
     return _cat(out)
 
 
+def ray_hits_pinhole_scenes_plain(dirs: torch.Tensor, ph_soa: torch.Tensor,
+                                  n_tris: torch.Tensor, t_min: float,
+                                  t_max: float):
+    """Plain version of K1's scene axis: frame b, dirs (B, N, 3) against
+    ph_soa (B, 10, F), stops at its own count n_tris[b] ((B,) int). ->
+    (t, cnt, idx), each (B, N), frame b's row that of its own call."""
+    frames = [ray_hits_pinhole_plain(d, ph, int(n), t_min, t_max)
+              for d, ph, n in zip(dirs, ph_soa, n_tris.tolist())]
+    return tuple(torch.stack([fr[i] for fr in frames]) for i in range(3))
+
+
 def ray_hits_plain(origins: torch.Tensor, dirs: torch.Tensor,
                    soa: torch.Tensor, n_tris, t_min: float, t_max: float):
     """Plain version of K2 over a (9, F) SoA. -> (t, cnt, idx)."""
@@ -292,6 +303,31 @@ def render_depth_batch(tri_soa: torch.Tensor, n_tris, Rs: torch.Tensor,
                                t_max=float(intr.zfar))
     zbuf = torch.where(t < _INF, t, torch.full_like(t, -1.0))
     return zbuf.reshape(-1, intr.image_height, intr.image_width)
+
+
+def render_depth_scenes(tri_soas: torch.Tensor, n_tris: torch.Tensor,
+                        Rs: torch.Tensor, Ts: torch.Tensor,
+                        intr: CameraIntrinsics) -> torch.Tensor:
+    """Depth frames (B, K, H, W) of K cameras in each of B scenes: tri_soas
+    (B, 9, F) padded to one F, n_tris (B,) int32, Rs (B, K, 3, 3), Ts
+    (B, K, 3). One K1 launch renders all B * K frames on the card, each
+    frame stopping at its scene's count (``ray_hits_pinhole_scenes``); each
+    frame is bit-equal to render_depth_batch of its own scene."""
+    B, K = Rs.shape[:2]
+    eye, d_world = frame_rays(Rs.reshape(B * K, 3, 3), Ts.reshape(B * K, 3),
+                              intr)
+    ph = torch.cat([pinhole_tri_soa(tri_soas[b], eye[b * K:(b + 1) * K])
+                    for b in range(B)])
+    counts = n_tris.reshape(B).to(torch.int32).repeat_interleave(K)
+    d_world = d_world.contiguous()
+    zn, zf = float(intr.znear), float(intr.zfar)
+    if d_world.device.type == "cpu":
+        t, _, _ = ray_hits_pinhole_scenes_plain(d_world, ph, counts, zn, zf)
+    else:
+        t, _, _ = kernels.ray_hits_pinhole_scenes(d_world, ph,
+                                                  counts.contiguous(), zn, zf)
+    zbuf = torch.where(t < _INF, t, torch.full_like(t, -1.0))
+    return zbuf.reshape(B, K, intr.image_height, intr.image_width)
 
 
 def render_depth(tri_soa: torch.Tensor, n_tris, R: torch.Tensor,

@@ -9,7 +9,9 @@ reference's Dijkstra breaks ties.
 The distance field and the path walk take and return tensors on one
 device; on the card they are the kernels ``nbp_bfs_field`` and
 ``nbp_extract_path`` (``csrc/plan.cu``), with no host sync, and on the CPU
-their plain versions.
+their plain versions. ``bfs_distance_field_scenes`` and
+``extract_path_scenes`` do the same for B lattices at once (one launch
+each, one block a scene).
 
 Edge memos: 0 unknown (use the layout test), 1 known passable, 2 known
 collision.
@@ -202,6 +204,52 @@ def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
                                       goal_lh.to(torch.int64).contiguous(),
                                       max_len)
     return path, meta[0], meta[1] != 0
+
+
+def bfs_distance_field_scenes_plain(blocked: torch.Tensor,
+                                    start_lh: torch.Tensor, L: int, H: int
+                                    ) -> torch.Tensor:
+    """Plain version of ``nbp_bfs_field``'s scene axis: blocked
+    (B, 4, L, H), start_lh (B, 2) -> (B, L, H), each scene's own field."""
+    return torch.stack([bfs_distance_field_plain(b, s, L, H)
+                        for b, s in zip(blocked, start_lh)])
+
+
+def bfs_distance_field_scenes(blocked: torch.Tensor, start_lh: torch.Tensor,
+                              L: int, H: int) -> torch.Tensor:
+    """``bfs_distance_field`` of B lattices: blocked (B, 4, L, H) bool,
+    start_lh (B, 2) -> (B, L, H) int32. One ``nbp_bfs_field`` launch on
+    CUDA tensors, its plain version on CPU tensors."""
+    if blocked.device.type == "cpu":
+        return bfs_distance_field_scenes_plain(blocked, start_lh, L, H)
+    return kernels.bfs_field_scenes(blocked.contiguous(),
+                                    start_lh.to(torch.int64).contiguous())
+
+
+def extract_path_scenes_plain(dist: torch.Tensor, blocked: torch.Tensor,
+                              goal_lh: torch.Tensor, L: int, H: int,
+                              max_len: int = 96):
+    """Plain version of ``nbp_extract_path``'s scene axis: each scene's
+    own walk, stacked."""
+    outs = [extract_path_plain(d, b, g, L, H, max_len)
+            for d, b, g in zip(dist, blocked, goal_lh)]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+
+def extract_path_scenes(dist: torch.Tensor, blocked: torch.Tensor,
+                        goal_lh: torch.Tensor, L: int, H: int,
+                        max_len: int = 96):
+    """``extract_path`` of B lattices: dist (B, L, H), blocked (B, 4, L, H),
+    goal_lh (B, 2) -> (path (B, max_len, 2) int32, path_len (B,) int32,
+    reachable (B,) bool). One ``nbp_extract_path`` launch on CUDA tensors,
+    its plain version on CPU tensors."""
+    if dist.device.type == "cpu":
+        return extract_path_scenes_plain(dist, blocked, goal_lh, L, H,
+                                         max_len)
+    path, meta = kernels.extract_path_scenes(
+        dist.contiguous(), blocked.contiguous(),
+        goal_lh.to(torch.int64).contiguous(), max_len)
+    return path, meta[:, 0], meta[:, 1] != 0
 
 
 def pick_orientations(path: torch.Tensor, path_valid: torch.Tensor,

@@ -45,6 +45,14 @@ class TrajectoryBuffer:
     def create(capacity: int, device) -> "TrajectoryBuffer":
         return TrajectoryBuffer(capacity, device)
 
+    @classmethod
+    def over(cls, storage: torch.Tensor, count: torch.Tensor):
+        """A buffer over existing tensors (a row of a stacked storage and
+        its count), written in place."""
+        buf = cls.__new__(cls)
+        buf._storage, buf.count = storage, count
+        return buf
+
     def append(self, pos: torch.Tensor) -> "TrajectoryBuffer":
         cap = self.xyz.shape[0]
         slot = torch.clamp(self.count, max=cap - 1).long()
@@ -121,8 +129,26 @@ def move_and_capture(tri_soa: torch.Tensor, n_tris, old_pose5: torch.Tensor,
     (``batched``) all with one scatter. Returns (pc, traj, last_zbuf)."""
     poses = interpolate_move(old_pose5, new_pose5, n_steps, n_azim)
     zbufs, Rs, Ts = capture_depth_batch(tri_soa, n_tris, poses, intr)
+    append_move(zbufs, Rs, Ts, poses, pc, traj, frame_scores, intr,
+                n_slots=n_slots, gathering_factor=gathering_factor,
+                sensor_range=sensor_range, frame_ranks=frame_ranks,
+                batched=batched)
+    return pc, traj, zbufs[-1]
+
+
+def append_move(zbufs: torch.Tensor, Rs: torch.Tensor, Ts: torch.Tensor,
+                poses: torch.Tensor, pc: PointBuffer,
+                traj: "TrajectoryBuffer",
+                frame_scores: Sequence[torch.Tensor], intr: CameraIntrinsics,
+                n_slots: int = 6144, gathering_factor: float = 0.05,
+                sensor_range: float = 70.0,
+                frame_ranks: Optional[Sequence[torch.Tensor]] = None,
+                batched: bool = False) -> None:
+    """The second half of ``move_and_capture``, on a move's rendered frames
+    (zbufs (K, H, W), Rs, Ts and poses (K, 5)): each frame sampled and
+    appended in order, or (``batched``) all with one scatter."""
     batches = []
-    for i in range(n_steps):
+    for i in range(zbufs.shape[0]):
         batch = backproject_sample(
             zbufs[i], Rs[i], Ts[i], intr, frame_scores[i], n_slots,
             gathering_factor=gathering_factor, sensor_range=sensor_range,
@@ -136,7 +162,6 @@ def move_and_capture(tri_soa: torch.Tensor, n_tris, old_pose5: torch.Tensor,
         pc.append_batches(torch.stack([b.points for b in batches]),
                           torch.stack([b.valid for b in batches]))
         traj.append_many(poses[:, :3])
-    return pc, traj, zbufs[-1]
 
 
 def observe_current(tri_soa: torch.Tensor, n_tris, pose5: torch.Tensor,

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from ..geometry.cameras import (CameraIntrinsics, _mat3, camera_center,
                                 get_camera_RT)
-from ..ops.raytrace import render_depth_batch
+from ..ops.raytrace import render_depth_batch, render_depth_scenes
 
 
 class FramePoints(NamedTuple):
@@ -32,6 +32,20 @@ def capture_depth_batch(tri_soa: torch.Tensor, n_tris, poses5: torch.Tensor,
     launch on the card). Returns (zbufs (B, H, W), R (B, 3, 3), T (B, 3))."""
     R, T = get_camera_RT(poses5[:, :3], poses5[:, 3:])
     return render_depth_batch(tri_soa, n_tris, R, T, intr), R, T
+
+
+def capture_depth_scenes(tri_soas: torch.Tensor, n_tris: torch.Tensor,
+                         poses5: torch.Tensor, intr: CameraIntrinsics
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Depth frames for K poses in each of B scenes, poses5 (B, K, 5),
+    tri_soas (B, 9, F) and n_tris (B,): one K1 launch on a scene axis on
+    the card. Returns (zbufs (B, K, H, W), R (B, K, 3, 3), T (B, K, 3)),
+    each scene's frames bit-equal to its own capture_depth_batch."""
+    B, K = poses5.shape[:2]
+    flat = poses5.reshape(B * K, 5)
+    R, T = get_camera_RT(flat[:, :3], flat[:, 3:])
+    R, T = R.reshape(B, K, 3, 3), T.reshape(B, K, 3)
+    return render_depth_scenes(tri_soas, n_tris, R, T, intr), R, T
 
 
 def capture_depth(tri_soa: torch.Tensor, n_tris, pose5: torch.Tensor,
@@ -125,6 +139,14 @@ class PointBuffer:
     @staticmethod
     def create(capacity: int, device) -> "PointBuffer":
         return PointBuffer(capacity, device)
+
+    @classmethod
+    def over(cls, storage: torch.Tensor, count: torch.Tensor):
+        """A buffer over existing tensors (a row of a stacked storage
+        (B, capacity + 1, 3) and its count), written in place."""
+        buf = cls.__new__(cls)
+        buf._storage, buf.count = storage, count
+        return buf
 
     @property
     def capacity(self) -> int:

@@ -12,9 +12,10 @@ each package reads the other's files. One entry:
 An npz holds ``n`` and, per entry i, ``mi_i``, ``gl_i``, ``px_i``, ``gn_i``
 and ``pi_i``. The readers follow the reference's sampling: every-Nth entry
 moved out as validation (``extract_validation``), and the newest ``last_n``
-entries plus a random sample of the older ones (``read_combined``). The
-native record store (JAX ``save_native`` / ``load_native``,
-``replay_native.py``) is not ported.
+entries plus a random sample of the older ones (``read_combined``).
+``save_native`` / ``load_native`` go through the native record store
+(``replay_native.py``), one record an experience, in the JAX package's
+record format.
 """
 
 from __future__ import annotations
@@ -153,3 +154,24 @@ class ReplayDB:
 
     def load(self, path: str) -> None:
         self.entries = _read_npz(path)
+
+    def save_native(self, path: str) -> None:
+        """Append the entries the native store at path does not hold yet,
+        one record each (JAX ``ReplayDB.save_native``)."""
+        from .replay_native import NativeReplayStore
+
+        store = NativeReplayStore(path)
+        for i in range(len(store), len(self.entries)):
+            store.append(self.entries[i])
+        store.close()
+
+    def load_native(self, path: str) -> int:
+        """Append every record of the native store at path; returns the
+        count."""
+        from .replay_native import NativeReplayStore
+
+        store = NativeReplayStore(path)
+        loaded = store.read_all()
+        self.entries.extend(loaded)
+        store.close()
+        return len(loaded)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from nextbestpath_tpu_torch import kernels
+from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics
 from nextbestpath_tpu_torch.ops import coverage as C
 from nextbestpath_tpu_torch.ops import raytrace as R
 from nextbestpath_tpu_torch.planning import grid_paths as G
@@ -50,19 +51,37 @@ def test_find_nvcc_raises_when_absent(monkeypatch):
         kernels.find_nvcc()
 
 
-@pytest.mark.parametrize("launch", ["pinhole", "general", "min_sq"])
+@pytest.mark.parametrize("launch", ["pinhole", "general", "min_sq",
+                                    "pinhole_scenes", "min_sq_scenes",
+                                    "bfs_scenes", "path_scenes"])
 def test_launchers_refuse_cpu_tensors(launch):
     """A launcher never falls back: a CPU tensor is an error, checked before
     any build."""
     x = torch.zeros(4, 3)
+    n2 = torch.zeros(2, dtype=torch.int32)
+    blocked = torch.zeros((2, 4, 3, 3), dtype=torch.bool)
+    start = torch.zeros((2, 2), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         if launch == "pinhole":
             kernels.ray_hits_pinhole(x[None], torch.zeros(1, 10, 4), 4, 0.0,
                                      1.0)
         elif launch == "general":
             kernels.ray_hits(x, x, torch.zeros(9, 4), 4, 0.0, 1.0)
-        else:
+        elif launch == "min_sq":
             kernels.min_sq_dists(x, x, 4)
+        elif launch == "pinhole_scenes":
+            kernels.ray_hits_pinhole_scenes(torch.stack([x, x]),
+                                            torch.zeros(2, 10, 4), n2, 0.0,
+                                            1.0)
+        elif launch == "min_sq_scenes":
+            kernels.min_sq_dists_scenes(torch.stack([x, x]),
+                                        torch.stack([x, x]), n2)
+        elif launch == "bfs_scenes":
+            kernels.bfs_field_scenes(blocked, start)
+        else:
+            kernels.extract_path_scenes(torch.zeros((2, 3, 3),
+                                                    dtype=torch.int32),
+                                        blocked, start, 8)
 
 
 @pytest.mark.parametrize("t_min", [-1.0, -1e-30, float("nan")])
@@ -90,9 +109,26 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     blocked = torch.zeros((4, 5, 6), dtype=torch.bool)
     dist = G.bfs_distance_field(blocked, torch.tensor([1, 2]), 5, 6)
     G.extract_path(dist, blocked, torch.tensor([4, 5]), 5, 6, max_len=8)
+    n2 = torch.tensor([50, 0], dtype=torch.int32)
+    R.render_depth_scenes(torch.stack([soa, soa]), n2,
+                          torch.eye(3).expand(2, 1, 3, 3),
+                          torch.zeros(2, 1, 3),
+                          CameraIntrinsics(4, 6, 60.0, 0.1, 100.0))
+    C.coverage_percentage_scenes(torch.stack([o, o]), torch.stack([d, d]),
+                                 torch.tensor([64, 3], dtype=torch.int32),
+                                 torch.tensor([1, 0]), torch.tensor([2, 1]),
+                                 torch.ones((2, 64), dtype=torch.bool))
+    dists = G.bfs_distance_field_scenes(torch.stack([blocked, blocked]),
+                                        torch.tensor([[1, 2], [0, 0]]), 5, 6)
+    G.extract_path_scenes(dists, torch.stack([blocked, blocked]),
+                          torch.tensor([[4, 5], [2, 2]]), 5, 6, max_len=8)
     assert kernels.LAUNCHES == {"ray_hits_pinhole": 0, "ray_hits": 0,
                                 "min_sq_dists": 0, "bfs_field": 0,
-                                "extract_path": 0}
+                                "extract_path": 0,
+                                "ray_hits_pinhole_scenes": 0,
+                                "min_sq_dists_scenes": 0,
+                                "bfs_field_scenes": 0,
+                                "extract_path_scenes": 0}
 
 
 @pytest.mark.cuda
@@ -471,7 +507,9 @@ def test_scan_rollout_captures_its_step_on_card():
     assert lg == le
     k = sum(rg)
     assert lg == {"ray_hits_pinhole": 1 + 2 * n, "ray_hits": 0,
-                  "min_sq_dists": n, "bfs_field": 4 * k, "extract_path": 4 * k}
+                  "min_sq_dists": n, "bfs_field": 4 * k, "extract_path": 4 * k,
+                  "ray_hits_pinhole_scenes": 0, "min_sq_dists_scenes": 0,
+                  "bfs_field_scenes": 0, "extract_path_scenes": 0}
     np.testing.assert_allclose(g.coverage_evolution, c.coverage_evolution,
                                atol=1e-3)
     np.testing.assert_allclose(g.cam_positions, c.cam_positions, atol=1e-4)
@@ -607,3 +645,260 @@ def test_train_step_turns_tf32_off_on_card():
     for k, want in out["cpu"].items():
         torch.testing.assert_close(out["cuda"][k], want, rtol=1e-4,
                                    atol=1e-10, msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The scene axis: K1, K3 and the planner kernels over B scenes, the
+# collection's capture (ROADMAP C.2) and the multi-scene modes
+# ---------------------------------------------------------------------------
+
+
+def _scene_inputs(kernel, n_scenes, seed=0):
+    """Seeded inputs of one scene-axis launcher on the card, with unequal
+    counts (one of them 0) and padding past them."""
+    gen = torch.Generator().manual_seed(seed)
+    counts = torch.tensor([(0, 700, 257, 1, 512, 650, 3, 699)[b % 8]
+                           for b in range(n_scenes)], dtype=torch.int32)
+    if kernel == "pinhole":
+        soas, dirs = [], []
+        for b in range(n_scenes):
+            tris, o, d = _rays(700, 1500, seed=seed + b)
+            soa = R.tris_to_soa(tris)
+            soa[:, int(counts[b]):] = 1e8
+            soas.append(R.pinhole_tri_soa(soa, o[0]))
+            dirs.append(d)
+        return (torch.stack(dirs).cuda(), torch.stack(soas).cuda(),
+                counts.cuda())
+    if kernel == "min_sq":
+        g = torch.rand((n_scenes, 3000, 3), generator=gen) * 200 - 100
+        s = torch.rand((n_scenes, 2048, 3), generator=gen) * 200 - 100
+        c = torch.tensor([(0, 2048, 1023, 1, 2000, 5, 1500, 777)[b % 8]
+                          for b in range(n_scenes)], dtype=torch.int32)
+        s = torch.where((torch.arange(2048) < c[:, None])[..., None], s,
+                        torch.full_like(s, 1e9))
+        return g.cuda(), s.contiguous().cuda(), c.cuda()
+    L, H = (17, 17) if kernel == "bfs" else (58, 58)
+    cases = ("open", "maze", "random", "walled")
+    blocked = torch.stack([_lattice(cases[b % 4], L, H, seed=seed + b)
+                           for b in range(n_scenes)])
+    start = torch.tensor([[b % L, (2 * b) % H] for b in range(n_scenes)],
+                         dtype=torch.int64)
+    return blocked.cuda(), start.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_scenes", [1, 4, 8])
+@pytest.mark.parametrize("kernel", ["pinhole", "min_sq", "bfs", "path"])
+def test_scene_kernels_equal_plain_versions_on_card(kernel, n_scenes):
+    """Each scene-axis launch against its plain version (each scene's own
+    plain call, stacked) and against a stack of today's single-scene
+    launches, bit for bit, with one count a launch; path at a 58x58 maze
+    and random lattices, past max_len."""
+    _need_card()
+    from nextbestpath_tpu_torch.planning import grid_paths as G
+
+    args = _scene_inputs(kernel, n_scenes)
+    kernels.reset_launch_counts()
+    if kernel == "pinhole":
+        dirs, ph, counts = args
+        got = kernels.ray_hits_pinhole_scenes(dirs, ph, counts, 1e-4, 3.4e38)
+        want = R.ray_hits_pinhole_scenes_plain(
+            dirs, ph, counts, 1e-4, 3.4e38)
+        single = [kernels.ray_hits_pinhole(d[None], p[None], c, 1e-4, 3.4e38)
+                  for d, p, c in zip(dirs, ph, counts)]
+        single = tuple(torch.cat([x[i] for x in single]) for i in range(3))
+        key = "ray_hits_pinhole"
+    elif kernel == "min_sq":
+        g, s, c = args
+        got = (kernels.min_sq_dists_scenes(g, s, c),)
+        want = (C.min_sq_dists_scenes_plain(g, s, c),)
+        single = (torch.stack([kernels.min_sq_dists(gb, sb, cb)
+                               for gb, sb, cb in zip(g, s, c)]),)
+        key = "min_sq_dists"
+    else:
+        blocked, start = args
+        L, H = blocked.shape[2:]
+        dist = kernels.bfs_field_scenes(blocked, start)
+        want_d = G.bfs_distance_field_scenes_plain(blocked, start, L, H)
+        if kernel == "bfs":
+            got, want = (dist,), (want_d,)
+            single = (torch.stack([kernels.bfs_field(b, s)
+                                   for b, s in zip(blocked, start)]),)
+            key = "bfs_field"
+        else:
+            assert torch.equal(dist, want_d)
+            goal = torch.tensor([[L - 1, H - 1], [1, 0], [L // 2, H // 2],
+                                 [0, 0]] * 2, dtype=torch.int64,
+                                device="cuda")[:n_scenes]
+            path, meta = kernels.extract_path_scenes(dist, blocked, goal, 96)
+            got = (path, meta[:, 0], meta[:, 1] != 0)
+            want = G.extract_path_scenes_plain(dist, blocked, goal, L, H, 96)
+            outs = [kernels.extract_path(d, b, g, 96)
+                    for d, b, g in zip(dist, blocked, goal)]
+            single = (torch.stack([o[0] for o in outs]),
+                      torch.stack([o[1][0] for o in outs]),
+                      torch.stack([o[1][1] != 0 for o in outs]))
+            key = "extract_path"
+    for gk, wk, sk in zip(got, want, single):
+        assert torch.equal(gk, wk.to(gk.device)), kernel
+        assert torch.equal(gk, sk), kernel
+    assert kernels.LAUNCHES[key + "_scenes"] == 1
+    assert kernels.LAUNCHES[key] == n_scenes
+
+
+@pytest.mark.cuda
+def test_scene_launchers_check_shapes_on_card():
+    _need_card()
+    x = torch.zeros(2, 4, 3, device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        kernels.ray_hits_pinhole_scenes(
+            x, torch.zeros(2, 10, 4, device="cuda"),
+            torch.zeros(2, dtype=torch.int64, device="cuda"), 0.0, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.min_sq_dists_scenes(
+            x, torch.zeros(3, 4, 3, device="cuda"),
+            torch.zeros(2, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="shape"):
+        kernels.bfs_field_scenes(
+            torch.zeros((2, 4, 3, 3), dtype=torch.bool, device="cuda"),
+            torch.zeros((3, 2), dtype=torch.int64, device="cuda"))
+
+
+TINY_CARD = dict(image_height=32, image_width=56, points_per_frame=256,
+                 full_pc_capacity=32768, n_gt_surface_points=1024,
+                 max_path_len=32, pc2img_size=[64, 64],
+                 value_map_size=[16, 16])
+
+
+def _tiny_scenes(seeds, difficulty="simple"):
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene,
+                                               pad_assets_to_common)
+    from nextbestpath_tpu_torch.config import default_params
+
+    p = default_params(**TINY_CARD)
+    return p, pad_assets_to_common([pack_generated_scene(
+        generate_scene(difficulty, seed=s), params=p) for s in seeds])
+
+
+def _cpu_draws(dev):
+    from nextbestpath_tpu_torch.draws import TorchDraws
+
+    return lambda s: TorchDraws(s, torch.device(dev), "cpu")
+
+
+@pytest.mark.cuda
+def test_scan_collection_captures_its_step_on_card():
+    """ScanCollection at TINY: captured as CUDA graphs it equals the same
+    step run eagerly on the card, record for record and bit for bit
+    (ROADMAP C.2)."""
+    _need_card()
+    from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
+    from nextbestpath_tpu_torch.train.scan_collection import ScanCollection
+
+    p, scenes = _tiny_scenes((2, 3))
+    outs = {}
+    for graphs in (True, False):
+        m = seeded_nbp()
+        coll = ScanCollection(scenes, m, params=p, device="cuda",
+                              make_draws=_cpu_draws("cuda"))
+        coll._use_graphs = graphs
+        outs[graphs] = [coll.run(i, m, seed=4 + i, n_poses=8)
+                        for i in range(2)]
+        if graphs:
+            assert coll.host_reads == 8
+    for g, e in zip(outs[True], outs[False]):
+        assert all(np.array_equal(a, b) for a, b in zip(g, e))
+        assert g.valid.any() and g.planned.any()
+
+
+@pytest.mark.cuda
+def test_batched_rollout_captures_its_step_on_card():
+    """The true-batch BatchedScanRollout over three padded scenes (ROADMAP
+    C.1): as CUDA graphs it equals the same step run eagerly bit for bit,
+    with one flag read a pose, K1 twice and K3 once a pose for all scenes
+    and the planner kernels max_plan_retries times on any-regeneration
+    poses; three single captured ScanRollouts with the same draws give the
+    same trajectories and coverage."""
+    _need_card()
+    from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
+    from nextbestpath_tpu_torch.eval.scan_rollout import (BatchedScanRollout,
+                                                          ScanRollout)
+
+    p, scenes = _tiny_scenes((5, 6, 7))
+    n = 8
+    runs = {}
+    for graphs in (True, False):
+        kernels.reset_launch_counts()
+        b = BatchedScanRollout(scenes, seeded_nbp(), params=p, device="cuda",
+                               make_draws=_cpu_draws("cuda"))
+        b._use_graphs = graphs
+        b.run(n_poses=2, seed=8)
+        before = dict(kernels.LAUNCHES)
+        res = b.run(n_poses=n, seed=8)
+        launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        runs[graphs] = (res, list(b.regen_poses), launches, b.host_reads)
+    (g, rg, lg, hg), (e, re_, le, _) = runs[True], runs[False]
+    assert rg == re_ and hg == n and lg == le
+    k = sum(any(f) for f in rg)
+    assert lg == dict(dict.fromkeys(lg, 0), ray_hits_pinhole_scenes=1 + 2 * n,
+                      min_sq_dists_scenes=n, bfs_field_scenes=4 * k,
+                      extract_path_scenes=4 * k)
+    for i, (a, sc) in enumerate(zip(scenes, b.scenes)):
+        assert g[i].coverage_evolution == e[i].coverage_evolution
+        assert np.array_equal(g[i].cam_positions, e[i].cam_positions)
+        solo = ScanRollout(a, seeded_nbp(), params=p, scene=sc, device="cuda",
+                           draws=_cpu_draws("cuda")(8 + i))
+        r = solo.run(n_poses=n)
+        assert solo.regen_poses == [f[i] for f in rg]
+        assert r.coverage_evolution == g[i].coverage_evolution
+        assert np.array_equal(r.cam_positions, g[i].cam_positions)
+
+
+@pytest.mark.cuda
+def test_run_interleaved_matches_single_runs_on_card():
+    """run_interleaved over three captured ScanRollouts equals each
+    rollout's own run, bit for bit, with one host read a scene and pose."""
+    _need_card()
+    from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
+    from nextbestpath_tpu_torch.eval.scan_rollout import (ScanRollout,
+                                                          run_interleaved)
+
+    p, scenes = _tiny_scenes((5, 6, 7))
+    rolls = [ScanRollout(a, seeded_nbp(), params=p, device="cuda")
+             for a in scenes]
+    got = run_interleaved(rolls, n_poses=8, seeds=[3, 1, 2])
+    assert all(r.host_reads == 8 for r in rolls)
+    for r, s, res in zip(rolls, (3, 1, 2), got):
+        want = r.run(n_poses=8, seed=s)
+        assert res.coverage_evolution == want.coverage_evolution
+        assert np.array_equal(res.cam_positions, want.cam_positions)
+        assert res.wall_time_s == got[0].wall_time_s
+
+
+@pytest.mark.cuda
+def test_scan_random_walk_captures_on_card():
+    """ScanRandomWalk over three scenes: one captured graph a pose and no
+    host read, equal to the eager walk bit for bit; one K1 launch and one
+    K3 launch a pose for all scenes."""
+    _need_card()
+    from nextbestpath_tpu_torch.eval.random_walk import ScanRandomWalk
+
+    p, scenes = _tiny_scenes((5, 6, 7))
+    runs = {}
+    for graphs in (True, False):
+        w = ScanRandomWalk(scenes, params=p, device="cuda",
+                           make_draws=_cpu_draws("cuda"))
+        w._use_graphs = graphs
+        w.run(n_poses=2, seed=3)
+        kernels.reset_launch_counts()
+        runs[graphs] = (w.run(n_poses=8, seed=3), dict(kernels.LAUNCHES),
+                        w.host_reads, dict(w.replays))
+    (g, lg, hg, rg), (e, le, _, _) = runs[True], runs[False]
+    assert hg == 0 and rg == {"pose": 8} and lg == le
+    assert lg["ray_hits_pinhole_scenes"] == 1 + 8
+    assert lg["min_sq_dists_scenes"] == 8
+    for a, b in zip(g, e):
+        assert a.coverage_evolution == b.coverage_evolution
+        assert np.array_equal(a.cam_positions, b.cam_positions)
+        assert max(a.coverage_evolution[1:]) > a.coverage_evolution[0]

@@ -34,6 +34,7 @@ Tolerances, and why:
 
 import contextlib
 import importlib
+import os
 import random
 
 import jax
@@ -438,6 +439,40 @@ def test_replay_npz_reads_across(tmp_path, writer):
             np.testing.assert_array_equal(g.gt_layout, e.gt_layout)
             np.testing.assert_array_equal(g.pixels, e.pixels)
             np.testing.assert_array_equal(g.gains, e.gains)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_replay_native_reads_across(tmp_path, writer):
+    """A native record store written by either package reads back equal in
+    the other, at a model input other than 256x256; a second save appends
+    only the new entries; nothing under native/ is written."""
+    from nextbestpath_tpu_torch.train import replay_native as RN
+
+    assert RN.native_available()
+    native = os.path.dirname(RN.TRACKED_LIB)
+    before = {n: os.path.getmtime(os.path.join(native, n))
+              for n in os.listdir(native)}
+    exps = _experiences(5, 6, JExperience)
+    w_cls, r_cls = (ReplayDB, JReplayDB) if writer == "port" else (JReplayDB,
+                                                                   ReplayDB)
+    path = str(tmp_path / "store" / "replay.bin")
+    db = w_cls()
+    for e in exps[:3]:
+        db.append(e.model_input, e.gt_layout, e.pixels, e.gains, e.pose_i)
+    db.save_native(path)
+    for e in exps[3:]:
+        db.append(e.model_input, e.gt_layout, e.pixels, e.gains, e.pose_i)
+    db.save_native(path)
+    back = r_cls()
+    assert back.load_native(path) == len(exps)
+    for g, e in zip(back.entries, exps):
+        assert g.model_input.dtype == np.float16 and g.pose_i == e.pose_i
+        np.testing.assert_array_equal(g.model_input, e.model_input)
+        np.testing.assert_array_equal(g.gt_layout, e.gt_layout)
+        np.testing.assert_array_equal(g.pixels, e.pixels)
+        np.testing.assert_array_equal(g.gains, e.gains)
+    assert before == {n: os.path.getmtime(os.path.join(native, n))
+                      for n in os.listdir(native)}
 
 
 # -- the step's numerics guard ------------------------------------------------
