@@ -98,7 +98,27 @@ Phases, each of which raises on failure (exit code != 0):
    one graph a pose with no host read, equal to eager; the aggregate
    poses/s of sequential single runs, ``run_interleaved`` and the true
    batch at B = 4 and 8 for 30 poses with the peak memory; and a small
-   true batch of two scenes on the card against the CPU.
+   true batch of two scenes on the card against the CPU;
+11. data parallelism over processes (``parallel/``), each job spawned by
+   ``parallel/launch.py`` with a deadline, any rank's failure failing the
+   phase: (a) under NCCL, one rank a card on every visible card (1 on a
+   one-card machine), ``run_training_nbp_dp`` with the bf16 full-width
+   ``seeded_train_model`` on ``simple`` 8.. (one a rank) for 2 epochs of
+   16 poses with held-out ``simple`` scenes evaluated by a
+   ``ShardedScanRollout``, counts set to 0 just before it and read just
+   after on rank 0 (the ``dp`` path: K2, K1, K3 and the planner kernels
+   all launched), the weights the same bits on every rank; then the
+   device ms of a DP micro step of 8 on phase 9's entries against the
+   single-process step in the same process, the ms of a micro step's
+   BatchNorm and gradient all-reduces alone, the ms a collected pose, the
+   aggregate collection and evaluation poses/s and the peak memory; (b)
+   two gloo ranks sharing card 0: the loss and gradient of one micro
+   batch (a rank holding only padded rows) against one process in f32
+   and f64, one ``train_nbp_dp`` cycle against ``train_nbp`` in f32 and
+   f64 (phase 8's tolerance, the weights the same bits on both ranks),
+   and the sharded rollout and collection over ``simple`` 8-9 at full
+   width equal to the two scenes' single captured runs bit for bit; (c)
+   with two or more cards, (b)'s checks under NCCL, one rank a card.
 
 Phase 3 also holds the scene-axis launches (K1, K3 and the planner
 kernels over B scenes, one count, lattice, start or goal a scene) against
@@ -119,6 +139,7 @@ this tree, this tree, DIR, and prints one JSON line a run and shape.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import math
@@ -777,16 +798,17 @@ def micro_step_times(state, ds, n, epochs=2):
 def scan_train_phase(params, assets, small, s_assets, dev, smi, f32):
     """Phase 9 (module docstring). ``f32``: phase 8's numbers, printed
     beside. Returns the launches by kernel of the collection's main path
-    (construction, warm-up and run)."""
+    (construction, warm-up and run), the collection's replay store and
+    the bf16 micro step's ms."""
     t_phase = time.perf_counter()
     launches, coll, db = phase9_collection(params, assets, dev, smi, f32)
     phase9_padded_k3(coll, dev)
-    phase9_bf16_step(db, dev, smi, f32)
+    micro_ms = phase9_bf16_step(db, dev, smi, f32)
     del coll
     phase9_driver(params, assets, dev, smi)
     phase9_card_vs_cpu(small, s_assets)
     log(f"phase 9 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
-    return launches
+    return launches, db, micro_ms
 
 
 def phase9_collection(params, assets, dev, smi, f32):
@@ -888,7 +910,8 @@ def phase9_padded_k3(coll, dev):
 
 def phase9_bf16_step(db, dev, smi, f32):
     """The bf16 training step at full width: 56 experiences, 7 micro steps
-    of 8 and one AdamW step a pass, the second pass timed."""
+    of 8 and one AdamW step a pass, the second pass timed. Returns the ms
+    of a micro step."""
     import torch
     from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
     from nextbestpath_tpu_torch.train import train_nbp as TT
@@ -905,6 +928,7 @@ def phase9_bf16_step(db, dev, smi, f32):
         f"peak {f32['peak_gib']:.2f} GiB; optimizer steps {steps}")
     if steps != 2 or not all(p.dtype == torch.float32 for p in tm.parameters()):
         raise AssertionError("the bf16 step did not emit twice on f32 parameters")
+    return micro
 
 
 def phase9_driver(params, assets, dev, smi):
@@ -1366,6 +1390,72 @@ def multi_scene_phase(params, small, dev, smi):
     return {"batch": batch_l, "interleaved": inter_l, "walk": walk_l}
 
 
+@contextlib.contextmanager
+def cards_visible(visible):
+    """CUDA_VISIBLE_DEVICES as the script found it (None: unset) inside the
+    block, for the processes started there; this process keeps its card."""
+    mine = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is None:
+        os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+    else:
+        os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    try:
+        yield
+    finally:
+        if mine is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = mine
+
+
+def card_count(visible) -> int:
+    """The cards the script found visible (CUDA_VISIBLE_DEVICES, else
+    nvidia-smi's list)."""
+    if visible is not None:
+        return len([v for v in visible.split(",") if v.strip()])
+    out = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True,
+                         check=True).stdout
+    return len([ln for ln in out.splitlines() if ln.startswith("GPU ")])
+
+
+def dp_phase(entries, micro9_ms, visible, smi):
+    """Phase 11 (module docstring): ``parallel/dryrun.py::chip_phase``.
+    ``entries``: phase 9's replay entries; ``micro9_ms``: phase 9's bf16
+    micro step. Returns rank 0's launches by kernel of (a)'s driver run."""
+    from nextbestpath_tpu_torch.parallel.dryrun import chip_phase
+
+    t_phase = time.perf_counter()
+    n_cards = card_count(visible)
+    with cards_visible(visible):
+        res = chip_phase(list(entries), n_cards)
+    a = res["a"]
+    log(f"phase 11(a) run_training_nbp_dp under NCCL, {n_cards} rank(s), one a card, bf16 "
+        f"full-width NBP, simple 8.. one a rank, 2 epochs of 16 poses, held-out eval "
+        f"[{smi}]: {a['driver_s']:.2f} s; wrote {a['files']}; log {json.dumps(a['log'])}; "
+        f"launches on rank 0 {a['launches']}; weights the same bits on every rank "
+        f"{a['same_bits']}")
+    log(f"phase 11(a) micro step of 8, bf16, 256x256x5 [{smi}]: DP over {n_cards} rank(s) "
+        f"{[round(x, 2) for x in a['micro_dp_ms']]} ms against one process "
+        f"{[round(x, 2) for x in a['micro_single_ms']]} ms in the same process (passes "
+        f"single, DP, DP, single; phase 9's bf16 step {micro9_ms:.2f} ms); a micro step's "
+        f"collectives alone: {a['n_bn']} BatchNorm all-reduces forward and back "
+        f"{a['bn_all_reduce_ms']:.4f} ms, the gradient bucket ({a['n_params']} + 1 f32) "
+        f"{a['grad_all_reduce_ms']:.4f} ms; collection {a['collect_ms']:.2f} ms a pose "
+        f"({a['collect_rate']:.2f} poses/s over {n_cards} card(s)); eval "
+        f"{a['eval_rate']:.2f} poses/s; peak {a['peak_mib']:.0f} MiB")
+    for tag in ("b", "c"):
+        if tag in res:
+            log(f"phase 11({tag}) {'2 gloo ranks sharing card 0' if tag == 'b' else f'NCCL over {n_cards} cards'} "
+                f"[{smi}]: {json.dumps(res[tag])}")
+    if n_cards < 2:
+        log("phase 11(c) skipped: one card visible")
+    want = ("ray_hits_pinhole", "ray_hits", "min_sq_dists", "bfs_field", "extract_path")
+    if any(a["launches"][k] <= 0 for k in want):
+        raise AssertionError(f"the dp path did not launch every kernel: {a['launches']}")
+    log(f"phase 11 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return a["launches"]
+
+
 def phase9_card_vs_cpu(small, s_assets):
     """One small-config collection (f32 NBP) on the card and on the CPU with
     one CPU generator's draws: the same decisions, coverage within 1e-3."""
@@ -1398,8 +1488,10 @@ def main() -> int:
     ap.add_argument("--against", default=None,
                     help="another checkout whose K2 to time at phase 3's K2 shapes")
     args = ap.parse_args()
-    # The smoke runs on one card: expose only the first visible one.
+    # The smoke runs on one card: expose only the first visible one (phase
+    # 11's NCCL ranks, other processes, see every card).
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    all_cards = visible
     os.environ["CUDA_VISIBLE_DEVICES"] = (visible.split(",")[0]
                                           if visible is not None else "0")
     import torch
@@ -1704,11 +1796,15 @@ def main() -> int:
 
     # 9. The scan trainer: collection as graphs, K3 on padded GT, the bf16
     # step, the driver with a resume, the card against the CPU.
-    by_path["scan_train"] = scan_train_phase(params, assets, small, s_assets, dev, smi,
-                                             f32_train)
+    by_path["scan_train"], db9, micro9 = scan_train_phase(params, assets, small, s_assets,
+                                                          dev, smi, f32_train)
     # 10. Several scenes on one card: the true batch, run_interleaved and
     # the batched random walk; the three modes' rates at B = 4 and 8.
     by_path.update(multi_scene_phase(params, small, dev, smi))
+    # 11. Several processes: the DP trainer under NCCL on every card, the
+    # parity checks on two gloo ranks sharing card 0 (and under NCCL on
+    # two or more cards).
+    by_path["dp"] = dp_phase(db9.entries, micro9, all_cards, smi)
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]

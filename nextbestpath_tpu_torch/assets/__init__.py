@@ -14,3 +14,4 @@ from .scene_assets import (
     pack_scene,
     pad_assets_to_common,
 )
+from .dataset import SceneDataset, get_dataloader

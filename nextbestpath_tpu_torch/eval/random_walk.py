@@ -218,7 +218,8 @@ class ScanRandomWalk(GraphSteps):
             results.append(RolloutResult(
                 coverage_evolution=[float(c) for c in coverage],
                 auc=compute_auc(coverage),
-                cam_positions=tr.xyz[:int(tr.count)].cpu().numpy(),
+                cam_positions=tr.xyz[:int(tr.count)].to(
+                    "cpu", copy=True).numpy(),
                 wall_time_s=0.0, n_points=int(self.pcs[b].count),
                 steps_per_sec=0.0))
         return _stop_clock(results, t1, n_poses, self.device)

@@ -746,7 +746,8 @@ class ScanRollout(GraphSteps):
         return RolloutResult(
             coverage_evolution=[float(c) for c in coverage],
             auc=compute_auc(coverage),
-            cam_positions=s.traj.xyz[:int(s.traj.count)].cpu().numpy(),
+            cam_positions=s.traj.xyz[:int(s.traj.count)].to(
+                "cpu", copy=True).numpy(),
             wall_time_s=0.0, n_points=int(s.pc.count), steps_per_sec=0.0)
 
     @torch.no_grad()

@@ -16,6 +16,17 @@ Upsampling is nearest 2x, as the JAX UpConv's
 ``jax.image.resize(..., "nearest")``. ``nbp_loss`` is the two-task
 training loss.
 
+Data parallelism (``parallel/dp.py``): inside ``batch_norm_group(model,
+group)`` a train-mode BatchNorm takes its statistics over the global
+batch of the ranks of a ``torch.distributed`` group, as flax's
+``BatchNorm`` does over a GSPMD-sharded batch: the per-channel sum, sum of
+squares and count are all-reduced, ``mean = E[x]`` and ``var = max(E[x^2]
+- E[x]^2, 0)``, the running update is flax's, and the backward is the
+global batch's gradient, with its own all-reduce (``_GlobalBatchNorm``).
+Outside the context (and in eval mode) it is the single-process
+BatchNorm above. ``nbp_loss(..., totals=, n_shares=)`` gives a rank's
+share of the loss of a global batch.
+
 Submodules are kept in the order flax numbers its auto-named modules
 (``ConvBlock_0..10``, ``UpConv_0..5``, ``AttentionGate_0..5``), so that
 ``models/convert.py`` maps a flax tree onto ``state_dict`` by index.
@@ -45,6 +56,7 @@ from contextlib import contextmanager
 from typing import Iterator, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -60,11 +72,76 @@ def cudnn_f32() -> Iterator[None]:
         torch.backends.cudnn.allow_tf32 = prev
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a process group.
+
+    Forward: each rank's per-channel sum and sum of squares (from one
+    ``var_mean`` pass) and count, one SUM all-reduce, then flax's
+    statistics, ``mean = E[x]`` and ``var = max(E[x^2] - E[x]^2, 0)``, the
+    running update ``0.9 r + 0.1 batch`` with the biased variance, and
+    ``y = x a + (bias - mean a)`` with ``a = weight / sqrt(var + eps)``.
+    Backward: the global batch's gradient, for which every rank's
+    ``sum(dy)`` and ``sum(dy (x - mean))`` a channel are all-reduced (the
+    backward's one all-reduce): ``dx = a dy - a sum(dy) / N - a (x - mean)
+    sum(dy (x - mean)) / (N (var + eps))``; the weight and bias gradients
+    are this rank's shares, which the caller's gradient all-reduce sums.
+    (Autograd through the formulas themselves would keep many full-size
+    intermediates and make several times the passes.)"""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, group,
+                eps: float, momentum: float):
+        # Few operations a layer: each is a host dispatch, and a DP micro
+        # step runs 46 layers forward and back.
+        c = x.shape[1]
+        var_l, mean_l = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        stats = torch.cat([mean_l, torch.addcmul(var_l, mean_l, mean_l),
+                           x.new_ones(1)]) * (x.numel() // c)
+        dist.all_reduce(stats, group=group)
+        moments = stats / stats[2 * c]
+        mean, ex2 = moments[:c], moments[c:2 * c]
+        var = torch.addcmul(ex2, mean, mean, value=-1.0).clamp_(min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        a = invstd * weight
+        y = torch.addcmul(torch.addcmul(bias, mean, a, value=-1.0).view(
+            1, c, 1, 1), x, a.view(1, c, 1, 1))
+        torch._foreach_mul_([running_mean, running_var], 1.0 - momentum)
+        torch._foreach_add_([running_mean, running_var], [mean, var],
+                            alpha=momentum)
+        ctx.save_for_backward(x, mean, invstd, a, stats[2 * c])
+        ctx.group = group
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, invstd, a, n = ctx.saved_tensors
+        c = x.shape[1]
+        sum_dy = dy.sum((0, 2, 3))
+        sum_dy_xmu = torch.addcmul((dy * x).sum((0, 2, 3)), mean, sum_dy,
+                                   value=-1.0)
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        dist.all_reduce(sums, group=ctx.group)
+        sums /= n
+        # dx = a dy + c1 x + c0, c1 = -a invstd^2 mean(dy (x - mean)),
+        # c0 = -a mean(dy) - c1 mean.
+        c1 = (a * invstd * invstd).mul_(sums[c:]).neg_()
+        c0 = torch.addcmul(torch.mul(a, sums[:c]), c1, mean).neg_()
+        dx = torch.addcmul(torch.addcmul(c0.view(1, c, 1, 1), x,
+                                         c1.view(1, c, 1, 1)),
+                           dy, a.view(1, c, 1, 1))
+        return (dx, sum_dy_xmu * invstd, sum_dy, None, None, None, None,
+                None)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) whose train mode updates
     the running statistics as flax's ``BatchNorm(momentum=0.9)``:
     ``running = 0.9 * running + 0.1 * batch`` with the biased batch
-    variance. Eval mode is ``nn.BatchNorm2d``'s."""
+    variance. Eval mode is ``nn.BatchNorm2d``'s. ``group`` (set by
+    ``batch_norm_group``): the process group whose global batch gives the
+    train-mode statistics; None, this process's batch."""
+
+    group = None
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-5, momentum=0.1)
@@ -72,6 +149,10 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                          self.running_mean, self.running_var,
+                                          self.group, self.eps, self.momentum)
         y = F.batch_norm(x, None, None, self.weight, self.bias,
                          training=True, eps=self.eps)
         with torch.no_grad():
@@ -80,6 +161,22 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.mul_(keep).add_(mean * self.momentum)
             self.running_var.mul_(keep).add_(var * self.momentum)
         return y
+
+
+@contextmanager
+def batch_norm_group(model: nn.Module, group) -> Iterator[None]:
+    """Inside the block every ``BatchNorm`` of ``model`` takes its
+    train-mode statistics over the global batch of ``group``'s ranks;
+    after it, over this process's batch again. (The group is not kept on
+    the model, which ``models/fold.py`` copies.)"""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.group = group
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.group = None
 
 
 class Conv(nn.Conv2d):
@@ -238,18 +335,32 @@ def nbp_loss(log_vars: torch.Tensor, pred_values: torch.Tensor,
              target_values: torch.Tensor, pred_layout: torch.Tensor,
              target_layout: torch.Tensor,
              value_weight: Optional[torch.Tensor] = None,
-             sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+             sample_weight: Optional[torch.Tensor] = None,
+             totals: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             n_shares: int = 1) -> torch.Tensor:
     """Homoscedastic two-task loss (JAX ``nbp_loss``):
     MSE(values) / (2 sigma1^2) + lv0 + BCE(layout) / sigma2^2 + lv1, with
     sigma_i^2 = exp(2 lv_i) and the layout clipped to [1e-7, 1 - 1e-7].
     ``value_weight`` masks padded value-pixel slots; ``sample_weight`` (B,)
-    masks padded batch rows in the layout BCE."""
+    masks padded batch rows in the layout BCE.
+
+    A rank's share of a global batch's loss (both weights given):
+    ``totals`` = (sum of value_weight, sum of sample_weight) over the
+    global batch, the denominators, and ``n_shares`` = the ranks, which
+    share the log-variance terms; the shares sum to the global loss."""
     sigma1_sq = torch.exp(2.0 * log_vars[0])
     sigma2_sq = torch.exp(2.0 * log_vars[1])
+    if totals is not None:
+        if value_weight is None or sample_weight is None:
+            raise ValueError("a loss share needs both weights")
+        value_total, sample_total = totals
+        log_vars = log_vars / n_shares
     se = (pred_values - target_values) ** 2
     if value_weight is not None:
-        mse = torch.sum(se * value_weight) / torch.clamp(
-            torch.sum(value_weight), min=1.0)
+        if totals is None:
+            value_total = torch.sum(value_weight)
+        mse = torch.sum(se * value_weight) / torch.clamp(value_total,
+                                                         min=1.0)
     else:
         mse = torch.mean(se)
     eps = 1e-7
@@ -257,9 +368,11 @@ def nbp_loss(log_vars: torch.Tensor, pred_values: torch.Tensor,
     bce_map = -(target_layout * torch.log(p)
                 + (1.0 - target_layout) * torch.log(1.0 - p))
     if sample_weight is not None:
+        if totals is None:
+            sample_total = torch.sum(sample_weight)
         per_sample = bce_map.reshape(bce_map.shape[0], -1).mean(dim=-1)
         bce = torch.sum(per_sample * sample_weight) / torch.clamp(
-            torch.sum(sample_weight), min=1.0)
+            sample_total, min=1.0)
     else:
         bce = torch.mean(bce_map)
     loss1 = mse / (2.0 * sigma1_sq) + log_vars[0]

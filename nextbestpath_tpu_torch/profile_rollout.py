@@ -1,7 +1,7 @@
 """Where a pose's time goes: a planning rollout under ``torch.profiler``.
 
     python3 -m nextbestpath_tpu_torch.profile_rollout [--poses 6]
-        [--rollout host|scan|cli|train|collect]
+        [--rollout host|scan|cli|train|collect|dp] [--ranks N]
 
 Runs the main path that ``chip_smoke.py`` drives
 (``eval.nbp_planning.main_path_setup``: procgen ``simple`` seed 8, default
@@ -26,7 +26,8 @@ graphs' device time by stage. Prints, a run:
 * the host time blocked in syncs (stream, device and event synchronizes,
   and blocking copies), against the wall: the rest of the host's time is
   dispatch;
-* the operations with the most device time. Needs a CUDA card.
+* the operations with the most device time, then those with the most
+  host time. Needs a CUDA card.
 
 ``--rollout collect`` profiles the scan trainer's collection
 (``train.scan_collection.ScanCollection``, what ``chip_smoke.py`` phase 9
@@ -42,6 +43,15 @@ then ``--poses`` cycles profiled; the ranges are the step's (forward,
 backward, accumulate, optimizer), with their host time only (autograd
 launches the backward's kernels from its own thread, outside them); the
 split of the device time is by operation.
+
+``--rollout dp [--ranks N]`` profiles the data-parallel micro step
+(``parallel/dp.py``, what ``chip_smoke.py`` phase 11 times) beside the
+single-process one: N NCCL ranks, one a card (default 1), spawned
+through ``parallel/launch.py``, the bf16 full-width NBP, 56 experiences
+of the main path's scene (rank 0's, sent to every rank), one cycle (7
+micro steps of 8 and the AdamW step) of each as warm-up, then ``--poses``
+cycles of each, profiled on rank 0 and run alike on the others; the DP
+step's ranges add ``grad_all_reduce``.
 """
 
 from __future__ import annotations
@@ -60,7 +70,7 @@ from .eval.scan_rollout import ScanRollout
 
 STAGES = ("coverage", "observe", "projections", "model_input", "gt_layout",
           "unet", "plan", "move", "pre", "post", "forward", "backward",
-          "accumulate", "optimizer")
+          "accumulate", "optimizer", "grad_all_reduce")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
 
@@ -200,6 +210,55 @@ def _train_runs():
     return [("train cycle", run)]
 
 
+def _dp_rank(mesh, n: int) -> None:
+    """A rank of ``--rollout dp``: the bf16 micro step in one process and
+    over the ranks, each warmed up by one cycle, then profiled (rank 0,
+    which prints) or run alike (the others)."""
+    import copy
+    import random
+
+    import torch.distributed as dist
+
+    from .parallel.dp import dp_step
+    from .train import train_nbp as TT
+    from .train.collection import collect_trajectory
+    from .train.replay import ReplayDB
+
+    params, assets, model = main_path_setup()
+    dev = mesh.device
+    box = [None]
+    if mesh.rank == 0:
+        db = ReplayDB()
+        collect_trajectory(assets, model.to(dev), db, params=params,
+                           seed=MAIN_PATH_SEED, n_poses=12, device=dev)
+        box = [db.entries]
+    dist.broadcast_object_list(box, src=0)
+    data = (box[0] * (56 // len(box[0]) + 1))[:56]
+    ds, _ = TT.build_device_dataset(data, dev)
+    bf16 = seeded_nbp(dtype=torch.bfloat16).to(dev)
+    single = TT.init_train_state(bf16)
+    dp = TT.init_train_state(copy.deepcopy(bf16))
+    rng = random.Random(0)
+
+    def run_single(k):
+        return _Cycles([TT.train_epoch_ds(single, ds, list(range(56)),
+                                          rng)[1] for _ in range(k)])
+
+    def run_dp(k):
+        return _Cycles([TT.train_epoch_ds(dp, ds, list(range(56)), rng,
+                                          loss_and_grads=dp_step(mesh))[1]
+                        for _ in range(k)])
+    run_single(1)
+    run_dp(1)
+    for label, run in (("train cycle", run_single),
+                       (f"train cycle dp over {mesh.size} rank(s)", run_dp)):
+        if mesh.rank == 0:
+            _profile(label, run, n)
+        else:
+            run(n)
+            run(n)
+
+
 def _profile(label: str, run, n: int) -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -246,17 +305,26 @@ def _profile(label: str, run, n: int) -> None:
           + f"); device idle {1 - busy / wall:.3f} of the wall")
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=25))
+    print(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                    row_limit=15))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--poses", type=int, default=6)
     ap.add_argument("--rollout",
-                    choices=("host", "scan", "cli", "train", "collect"),
+                    choices=("host", "scan", "cli", "train", "collect", "dp"),
                     default="host")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="--rollout dp: NCCL ranks, one a card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
+    if args.rollout == "dp":
+        from .parallel.launch import spawn
+        spawn(_dp_rank, args.ranks, device="cuda", backend="nccl",
+              args=(args.poses,), timeout_s=900.0)
+        return
     runs = {"train": _train_runs, "collect": _collect_runs}.get(
         args.rollout, lambda: _runs(args.rollout))()
     for label, run in runs:

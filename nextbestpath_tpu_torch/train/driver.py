@@ -15,8 +15,11 @@ for every same-lattice scene), a bf16 U-Net, held-out rollout evaluation
 (``BatchedScanRollout``) that selects ``{tag}_best_auc.ckpt``, a
 ``{tag}_latest.ckpt`` with the optimizer state after every epoch, replay
 shards a collection epoch in ``db_dir``, resume from both, a warm start
-from a checkpoint's variables and a wall-clock budget. The data-parallel
-trainer is not ported.
+from a checkpoint's variables and a wall-clock budget.
+
+``run_training_nbp_dp``, the data-parallel trainer over ranks
+(``parallel/``): collection one scene a rank, training with every micro
+batch split over the ranks, held-out evaluation one scene a rank.
 """
 
 from __future__ import annotations
@@ -348,4 +351,122 @@ def run_training_nbp_scan(
                 print(f"wall-clock budget reached after epoch {epoch}; "
                       "resume with resume=True", flush=True)
             break
+    return state
+
+
+def run_training_nbp_dp(
+    scenes: Sequence[SceneAssets],
+    mesh,
+    eval_scenes: Optional[Sequence[SceneAssets]] = None,
+    params: Optional[Params] = None,
+    epochs: int = 10,
+    n_poses: int = 100,
+    weights_dir: str = "weights/nbp",
+    log_dir: str = "training_log",
+    model_tag: str = "nbp_dp",
+    seed: int = 8,
+    verbose: bool = True,
+    model: Optional[NBP] = None,
+    db: Optional[ReplayDB] = None,
+) -> TrainState:
+    """Data-parallel NBP training on the ranks of ``mesh``
+    (``parallel/mesh.py``), called on every rank with the same arguments
+    (JAX ``run_training_nbp_dp``, the reference's DDP trainer,
+    macarons_utils.py:177-326 and train_nbp_model.py:40-158).
+
+    ``scenes`` (same-lattice, a multiple of the ranks) are collected in
+    groups of W, one scene a rank (``ShardedScanCollection``; group g's
+    scene r from seed ``seed * 1000 + epoch * len(scenes) + g * W + r``),
+    into a replay store that is the same on every rank. Epoch 0 moves the
+    validation split out; later epochs train with ``train_nbp_dp`` and,
+    with ``eval_scenes`` (one a rank), score them with a
+    ``ShardedScanRollout`` of ``min(n_poses, 40)`` poses from seed 999.
+    Rank 0 alone writes ``{tag}_best_val.ckpt`` and the loss JSON; the
+    ranks meet at a barrier after. ``model``: default the bf16
+    ``seeded_train_model(seed)``; rank 0's weights are broadcast to every
+    rank first. db: the replay store to fill (default a
+    new one), which the caller can read or save after the run. Returns the
+    final TrainState, the same on every rank."""
+    import torch.distributed as dist
+
+    from ..parallel.dp import train_nbp_dp
+    from ..parallel.mesh import replicate
+    from ..parallel.spmd import ShardedScanCollection, ShardedScanRollout
+
+    p = params or default_params()
+    W = mesh.size
+    if len(scenes) % W:
+        raise ValueError(
+            f"scene count {len(scenes)} must be a multiple of the ranks {W} "
+            "(one scene a rank a collection)")
+    model = (model if model is not None
+             else seeded_train_model(seed, dtype=torch.bfloat16)
+             ).to(mesh.device)
+    replicate(list(model.parameters()) + list(model.buffers()), mesh)
+    state = init_train_state(model, lr=float(p.nbp_lr))
+    groups = [list(scenes[i:i + W]) for i in range(0, len(scenes), W)]
+    collections = [ShardedScanCollection(g, model, mesh, params=p)
+                   for g in groups]
+    evaluator = (ShardedScanRollout(eval_scenes, model, mesh, params=p)
+                 if eval_scenes else None)
+    lead = mesh.rank == 0
+    say = verbose and lead
+
+    db = db if db is not None else ReplayDB()
+    validation_data: List = []
+    best_val = float("inf")
+    log = {"train": [], "val": [], "coverage_after_trajectory": [],
+           "eval_auc": []}
+    for epoch in range(epochs):
+        t0 = time.time()
+        if say:
+            print(f"=== [dp x{W}] epoch {epoch} ===", flush=True)
+        for gi, col in enumerate(collections):
+            covs = col.collect_all(
+                state.model, db,
+                seed=seed * 1000 + epoch * len(scenes) + gi * W,
+                n_poses=n_poses)
+            for s, cov in enumerate(covs):
+                log["coverage_after_trajectory"].append(
+                    cov[-1] if cov else 0.0)
+                if say:
+                    print(f"  collected {groups[gi][s].name}: {len(cov)} "
+                          f"poses, final coverage "
+                          f"{cov[-1] if cov else 0:.4f}, db {len(db)}",
+                          flush=True)
+
+        if epoch == 0:
+            validation_data = db.extract_validation(num=1200)
+            if say:
+                print(f"  validation split: {len(validation_data)} entries")
+        else:
+            state, tl, vl = train_nbp_dp(
+                state, db, validation_data, current_epoch=epoch, mesh=mesh,
+                params=p, seed=seed * 131 + epoch, verbose=verbose)
+            log["train"].append(tl)
+            log["val"].append(vl)
+            if vl < best_val:
+                best_val = vl
+                if lead:
+                    save_nbp(os.path.join(weights_dir,
+                                          f"{model_tag}_best_val.ckpt"),
+                             state.model, epoch=epoch)
+
+        if evaluator is not None and epoch > 0:
+            results = evaluator.run(n_poses=min(n_poses, 40), seed=999,
+                                    variables=state.model)
+            aucs = {a.name: round(r.auc, 4)
+                    for a, r in zip(eval_scenes, results)}
+            log["eval_auc"].append({"epoch": epoch, "auc": aucs})
+            if say:
+                print(f"  eval AUC: {aucs}", flush=True)
+
+        if lead:
+            os.makedirs(log_dir, exist_ok=True)
+            with open(os.path.join(log_dir, f"{model_tag}_loss.json"),
+                      "w") as f:
+                json.dump(log, f)
+        dist.barrier(group=mesh.group)
+        if say:
+            print(f"  epoch wall time {time.time() - t0:.1f}s", flush=True)
     return state

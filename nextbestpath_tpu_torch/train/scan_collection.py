@@ -447,7 +447,9 @@ class ScanCollection(GraphSteps):
                 self._step("plan")
             self._step("post")
             plan_poses.append(plan_now)
-        out = CollectOut(**{k: v[:n_poses].cpu().numpy()
+        # A copy on the CPU too: the records are static buffers that the
+        # next run overwrites.
+        out = CollectOut(**{k: v[:n_poses].to("cpu", copy=True).numpy()
                             for k, v in self.records.items()})
         self.wall_time_s = time.perf_counter() - t0
         self.plan_poses = plan_poses

@@ -41,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import random
 import sys
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -250,8 +250,34 @@ def _accumulate(state: TrainState, grads) -> None:
     state.mini_step = 0
 
 
+def _loss_and_grads(model: NBP, ds: Dataset, idx: torch.Tensor,
+                    sw: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Sequence[torch.Tensor]]:
+    """The loss of the micro batch (idx, sw) gathered from the staged
+    dataset, in the model's current mode, and its gradients. Returns
+    (loss, gradients), the loss detached."""
+    with record_function("forward"):
+        x, layout, pixels, gains, weights = _batch(ds, idx, sw)
+        vm, om = model(x)
+        pred_vals = _gather_pred_values(vm, pixels)
+        loss = nbp_loss(model.log_vars, pred_vals, gains, om, layout,
+                        value_weight=weights, sample_weight=sw)
+    with record_function("backward"):
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    return loss.detach(), grads
+
+
+# (model, ds, idx, sw) -> (loss, gradients) of a micro batch: one process's
+# (``_loss_and_grads``) or the global batch's over ranks
+# (``parallel/dp.py::dp_loss_and_grads_ds``).
+LossAndGrads = Callable[[NBP, Dataset, torch.Tensor, torch.Tensor],
+                        Tuple[torch.Tensor, Sequence[torch.Tensor]]]
+
+
 def _train_step_ds(state: TrainState, ds: Dataset, idx: torch.Tensor,
-                   sw: torch.Tensor) -> torch.Tensor:
+                   sw: torch.Tensor,
+                   loss_and_grads: LossAndGrads = _loss_and_grads
+                   ) -> torch.Tensor:
     """One micro step gathered from the staged dataset: idx (B,) entry
     indices, sw (B,) row weights (0 for padded tail rows, which still
     enter the BatchNorm batch statistics). Updates the model's running
@@ -260,17 +286,10 @@ def _train_step_ds(state: TrainState, ds: Dataset, idx: torch.Tensor,
     model = state.model
     model.train()
     with cudnn_f32():
-        with record_function("forward"):
-            x, layout, pixels, gains, weights = _batch(ds, idx, sw)
-            vm, om = model(x)
-            pred_vals = _gather_pred_values(vm, pixels)
-            loss = nbp_loss(model.log_vars, pred_vals, gains, om, layout,
-                            value_weight=weights, sample_weight=sw)
-        with record_function("backward"):
-            grads = torch.autograd.grad(loss, state.params)
+        loss, grads = loss_and_grads(model, ds, idx, sw)
         with record_function("accumulate"):
             _accumulate(state, grads)
-    return loss.detach()
+    return loss
 
 
 @torch.no_grad()
@@ -322,13 +341,14 @@ def _mean_loss(losses: List[torch.Tensor]) -> float:
 
 
 def train_epoch_ds(state: TrainState, ds: Dataset, index_pool: List[int],
-                   rng: random.Random, micro_batch: int = MICRO_BATCH
+                   rng: random.Random, micro_batch: int = MICRO_BATCH,
+                   loss_and_grads: LossAndGrads = _loss_and_grads
                    ) -> Tuple[TrainState, float]:
     """One shuffled pass over ``index_pool`` of the staged dataset; returns
     (state, mean micro-step loss)."""
     pool = list(index_pool)
     rng.shuffle(pool)
-    losses = [_train_step_ds(state, ds, idx, sw)
+    losses = [_train_step_ds(state, ds, idx, sw, loss_and_grads)
               for idx, sw in _micro_chunks(pool, micro_batch, rng=rng,
                                            device=state.device)]
     return state, _mean_loss(losses)
@@ -446,23 +466,35 @@ def count_parameters(model: NBP) -> int:
 def train_nbp(state: TrainState, db: ReplayDB,
               validation_data: List[Experience], current_epoch: int,
               params: Optional[Params] = None, num_epochs: int = 5,
-              seed: int = 0, verbose: bool = True
+              seed: int = 0, verbose: bool = True,
+              micro_batch: Optional[int] = None,
+              whole_store_first: bool = False,
+              loss_and_grads: LossAndGrads = _loss_and_grads
               ) -> Tuple[TrainState, float, float]:
     """``num_epochs`` inner epochs over a bounded slice of the replay data
     (the newest 4608 and 2048 sampled older ones, staged once), each
     validated, the learning rate on a plateau schedule. Returns (state,
-    mean train loss, mean validation loss)."""
+    mean train loss, mean validation loss).
+
+    The data-parallel trainer (``parallel/dp.py::train_nbp_dp``) sets the
+    rest: micro_batch (default ``min(MICRO_BATCH, nbp_batch_size)``),
+    whole_store_first (epoch 1 reads the whole store), loss_and_grads (a
+    micro batch's loss and gradients)."""
     p = params or default_params()
     rng = random.Random(seed)
-    data = db.read_combined(last_n=4608, sample_size=2048, rng=rng)
+    if whole_store_first and current_epoch == 1:
+        data = db.read_combined(last_n=None)
+    else:
+        data = db.read_combined(last_n=4608, sample_size=2048, rng=rng)
     sched = PlateauScheduler()
     lr = state.lr
     train_losses, val_losses = [], []
     ds, _ = build_device_dataset(data, state.device)
     pool = _epoch_pool(data, current_epoch)
-    micro = min(MICRO_BATCH, int(p.nbp_batch_size))
+    micro = micro_batch or min(MICRO_BATCH, int(p.nbp_batch_size))
     for e in range(num_epochs):
-        state, tl = train_epoch_ds(state, ds, pool, rng, micro_batch=micro)
+        state, tl = train_epoch_ds(state, ds, pool, rng, micro_batch=micro,
+                                   loss_and_grads=loss_and_grads)
         vl = validate(state, validation_data, int(p.nbp_batch_size))
         train_losses.append(tl)
         val_losses.append(vl)

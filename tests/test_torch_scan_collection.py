@@ -306,3 +306,18 @@ def test_scan_collection_matches_jax_full_width(flax_model):
                             device="cpu")
     got = tc.run(0, tm, seed=8, n_poses=3)
     _same_records(got, want, 3)
+
+
+def test_run_records_outlive_the_next_run():
+    """A run's records are the host's own copy on the CPU too: the next run
+    of the collection (another scene) leaves them as they were."""
+    _, pair = _scene_pair(TA, TC)
+    scenes = TA.pad_assets_to_common(pair)
+    tm = TorchNBP(width=8).train()
+    tc = TSC.ScanCollection(scenes, tm, params=TC.default_params(**TINY),
+                            device="cpu")
+    first = tc.run(0, tm, seed=5, n_poses=3)
+    kept = [np.array(a, copy=True) for a in first]
+    tc.run(1, tm, seed=6, n_poses=3)
+    for name, a, b in zip(first._fields, first, kept):
+        np.testing.assert_array_equal(a, b, err_msg=name)

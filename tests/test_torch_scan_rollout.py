@@ -166,6 +166,31 @@ def test_scan_default_draws_repeat_and_refuse_options():
             ScanRollout(assets, TorchNBP(width=4), params=params)
 
 
+@pytest.mark.parametrize("which", ["scan", "walk"])
+def test_run_results_outlive_the_next_run(which):
+    """A run's trajectory is the host's own copy on the CPU too: the next
+    run, on another trajectory (the scan with other weights, the walk from
+    another seed), leaves it as it was."""
+    from nextbestpath_tpu_torch.eval.random_walk import ScanRandomWalk
+
+    params = TC.default_params(**SMALL)
+    assets = _torch_assets("simple", 4)
+    if which == "scan":
+        roll = ScanRollout(assets, TE.seeded_nbp(width=8), params=params,
+                           device="cpu")
+        first = roll.run(n_poses=4, seed=5)
+        kept = first.cam_positions.copy()
+        second = roll.run(n_poses=4, seed=5,
+                          variables=TE.seeded_nbp(width=8, seed=4))
+    else:
+        roll = ScanRandomWalk([assets], params=params, device="cpu")
+        first = roll.run(n_poses=4, seed=5)[0]
+        kept = first.cam_positions.copy()
+        second = roll.run(n_poses=4, seed=6)[0]
+    assert not np.array_equal(second.cam_positions[:len(kept)], kept)
+    np.testing.assert_array_equal(first.cam_positions, kept)
+
+
 def test_edge_memo_helpers():
     memo = torch.zeros((4, 5, 6), dtype=torch.int8)
     a, b = torch.tensor([2, 3]), torch.tensor([3, 3])
