@@ -120,6 +120,28 @@ Phases, each of which raises on failure (exit code != 0):
    width equal to the two scenes' single captured runs bit for bit; (c)
    with two or more cards, (b)'s checks under NCCL, one rank a card.
 
+12. the MACARONS greedy next-best-view evaluation
+   (``eval/macarons_nbv.py``, ``eval/object_nbv.py``) on the main path's
+   scene with the default config (20000 proxy points, 1024 point-cloud and
+   proxy tokens, 20 candidates) and SconeOcc and SconeVis at their
+   published widths with seeded weights, in f32: (a) the learned rollout
+   for 10 poses after a 1-pose warm-up, counts set to 0 just before it and
+   read just after (K2 once for the tables, K1 once for the initial move
+   and once a pose, K3 once a pose), coverage rising, its ms a pose and
+   peak memory, then 3 poses under the profiler for the device ms of each
+   stage (coverage, carve, occupancy, the Gumbel draw, gains, move), and
+   the Gumbel noise's draw alone (device ms and memory); (b) the oracle
+   mode for 3 poses (K1 also once a pose for the 20 candidate frames, K3
+   also once a pose for the covered points and the scene-axis K3 once a
+   pose for the candidates); (c) the object NBV for 4 views (K2 once a
+   view); (d) small runs (32x56, 2 poses; the object NBV at 8 candidates)
+   on the card against the CPU with one CPU generator's draws: the same
+   picks, coverage within 1e-3; (e) the kernels at the shapes only these
+   paths give them, against their plain versions bit for bit, with their
+   times and bounds (K1 on the oracle's 20 frames in one launch, K3 on the
+   2M-slot buffer, the scene-axis K3 on the 20 candidates' frames against
+   one GT, K2 on the object's visibility rays).
+
 Phase 3 also holds the scene-axis launches (K1, K3 and the planner
 kernels over B scenes, one count, lattice, start or goal a scene) against
 their plain versions and against stacked single-scene launches, bit for
@@ -1390,6 +1412,272 @@ def multi_scene_phase(params, small, dev, smi):
     return {"batch": batch_l, "interleaved": inter_l, "walk": walk_l}
 
 
+def nbv_stage_ms(run, n_poses):
+    """Device ms a pose of each stage range of the NBV rollout ``run()``
+    (``torch.profiler``; ``profile_rollout.py``'s split: the activities
+    that start inside a range's device extent), and the profiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nextbestpath_tpu_torch.eval.macarons_nbv import NBV_STAGES
+    from nextbestpath_tpu_torch.profile_rollout import (_device_spans,
+                                                        _stage_device_us)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernel_spans, stages = _device_spans(prof.events())
+    out = {name: _stage_device_us(kernel_spans, spans) / 1e3 / n_poses
+           for name, spans in stages.items() if name in NBV_STAGES}
+    return out, wall / n_poses * 1e3
+
+
+def nbv_phase(params, assets, dev, smi):
+    """Phase 12 (module docstring). Returns the launches by kernel of its
+    three counted paths: {"nbv": ..., "nbv_oracle": ..., "object_nbv": ...}."""
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.assets import generate_scene, pack_generated_scene
+    from nextbestpath_tpu_torch.assets.objects import generate_object
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.macarons_nbv import (
+        C_MAX, NBV_SMALL, NBV_SMALL_TOKENS, macarons_nbv_rollout, seeded_scone)
+    from nextbestpath_tpu_torch.eval.nbp_planning import MAIN_PATH_SEED
+    from nextbestpath_tpu_torch.eval.object_nbv import object_nbv_rollout
+
+    t_phase = time.perf_counter()
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    occ, vis = seeded_scone()
+    n_occ = sum(p.numel() for p in occ.parameters())
+    n_vis = sum(p.numel() for p in vis.parameters())
+
+    def nbv(n_poses, oracle=False):
+        return macarons_nbv_rollout(assets, None if oracle else occ,
+                                    None if oracle else vis, params=params,
+                                    n_poses=n_poses, seed=MAIN_PATH_SEED,
+                                    oracle=oracle, device=dev)
+
+    def counted(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res = run()
+        return res, dict(kernels.LAUNCHES), torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # (a) The learned NBV at full width after a 1-pose warm-up.
+    nbv(1)
+    n_poses = 10
+    res, nbv_l, peak = counted(lambda: nbv(n_poses))
+    cov = res.coverage_evolution
+    ms = res.wall_time_s / n_poses * 1e3
+    log(f"phase 12(a) learned NBV simple/{MAIN_PATH_SEED}, SconeOcc ({n_occ:,} parameters) and "
+        f"SconeVis ({n_vis:,}) seeded, f32, {int(params.n_proxy_points)} proxy points, 1024 "
+        f"tokens, {C_MAX} candidates, {n_poses} poses [{smi}]: {ms:.2f} ms a pose "
+        f"({res.steps_per_sec:.2f} poses/s), peak memory {peak:.0f} MiB, coverage "
+        f"{[round(c, 4) for c in cov]}, points {res.n_points}, launches {nbv_l}")
+    rises("phase 12(a) learned NBV", cov)
+    expect_launches("phase 12(a)", nbv_l, dict(zero, ray_hits=1, ray_hits_pinhole=1 + n_poses,
+                                               min_sq_dists=n_poses))
+    stage, prof_ms = nbv_stage_ms(lambda: nbv(3), 3)
+    log(f"phase 12(a) learned NBV device ms a pose by stage (3 poses profiled, {prof_ms:.2f} "
+        f"ms a pose under the profiler, scene tables included) [{smi}]: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()))
+
+    # The Gumbel noise alone: C_MAX x (1024 tokens x P proxies) f32.
+    n_proxy = int(params.n_proxy_points)
+    shapes = [(1024, n_proxy)] * C_MAX
+    draws = TorchDraws(1, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    noise = draws.gumbels("gain", shapes)
+    g_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    del noise
+    g_ms = kernels.device_ms(lambda: draws.gumbels("gain", shapes), reps=5)
+    g_bytes = C_MAX * 1024 * n_proxy * 4
+    log(f"phase 12(a) Gumbel draw of {C_MAX} x (1024 x {n_proxy}) f32 ({g_bytes / 2 ** 30:.2f} GiB) "
+        f"[{smi}]: {g_ms:.3f} device ms, peak {g_peak:.0f} MiB over the live tensors, "
+        f"its write alone at the memory rate {g_bytes / PEAK_BYTES * 1e3:.3f} ms")
+
+    # (b) The oracle mode: 20 candidate frames in one K1 launch a pose.
+    n_or = 3
+    nbv(1, oracle=True)
+    res, or_l, peak = counted(lambda: nbv(n_or, oracle=True))
+    cov = res.coverage_evolution
+    ms = res.wall_time_s / n_or * 1e3
+    log(f"phase 12(b) oracle NBV simple/{MAIN_PATH_SEED}, {n_or} poses [{smi}]: {ms:.2f} ms a "
+        f"pose, peak memory {peak:.0f} MiB, coverage {[round(c, 4) for c in cov]}, launches {or_l}")
+    rises("phase 12(b) oracle NBV", cov)
+    expect_launches("phase 12(b)", or_l, dict(zero, ray_hits=1, ray_hits_pinhole=1 + 2 * n_or,
+                                              min_sq_dists=2 * n_or, min_sq_dists_scenes=n_or))
+    stage, prof_ms = nbv_stage_ms(lambda: nbv(n_or, oracle=True), n_or)
+    log(f"phase 12(b) oracle NBV device ms a pose by stage ({n_or} poses profiled, "
+        f"{prof_ms:.2f} ms a pose under the profiler) [{smi}]: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()))
+
+    # (c) The object NBV: K2 once a view.
+    obj = generate_object(seed=6)
+    n_views = 4
+    object_nbv_rollout(obj, vis, n_views=2, seed=0, device=dev)
+    t0 = time.perf_counter()
+    (curve, chosen), obj_l, peak = counted(
+        lambda: object_nbv_rollout(obj, vis, n_views=n_views, seed=0, device=dev,
+                                   return_views=True))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_views * 1e3
+    log(f"phase 12(c) object NBV procobj_6 ({obj.n_tris} triangles, 2048 surface points, 32 "
+        f"candidates, 512 tokens), {n_views} views [{smi}]: {ms:.2f} ms a view, peak memory "
+        f"{peak:.0f} MiB, curve {[round(c, 4) for c in curve]}, views {chosen}, launches {obj_l}")
+    if not (curve[-1] > curve[0] > 0.0 and len(set(chosen)) == n_views):
+        raise AssertionError(f"phase 12(c): the object NBV does not progress: {curve} {chosen}")
+    expect_launches("phase 12(c)", obj_l, dict(zero, ray_hits=n_views))
+
+    # (d) Small runs on the card against the CPU, one CPU generator's draws.
+    small = default_params(**NBV_SMALL)
+    s_assets = pack_generated_scene(generate_scene("simple", seed=6), params=small)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        s_occ, s_vis = seeded_scone(small=True)
+        for oracle in (False, True):
+            runs[d, oracle] = macarons_nbv_rollout(
+                s_assets, s_occ, s_vis, params=small, n_poses=2, seed=1, oracle=oracle,
+                draws=TorchDraws(1, torch.device(d), "cpu"), device=d, **NBV_SMALL_TOKENS)
+        runs[d, "object"] = object_nbv_rollout(generate_object(seed=6, n_gt_surface_points=512),
+                                               s_vis, n_views=4, n_candidates=8, n_tokens=64,
+                                               seed=0, device=d, return_views=True)
+    for mode in (False, True):
+        g, c = runs["cuda", mode], runs["cpu", mode]
+        diff = max(abs(a - b) for a, b in zip(g.coverage_evolution, c.coverage_evolution))
+        same = (g.cam_positions.shape == c.cam_positions.shape and g.n_points == c.n_points
+                and float(abs(g.cam_positions - c.cam_positions).max()) < 1e-4)
+        log(f"phase 12(d) small {'oracle' if mode else 'learned'} NBV (32x56, 2 poses) card vs CPU: "
+            f"card {g.coverage_evolution} vs cpu {c.coverage_evolution}, max diff {diff:.2e}, "
+            f"same picks {same}")
+        if diff > TOL_COVERAGE or not same:
+            raise AssertionError("phase 12(d): the card's small NBV rollout disagrees with the CPU's")
+    (gc, gv), (cc, cv) = runs["cuda", "object"], runs["cpu", "object"]
+    log(f"phase 12(d) small object NBV card vs CPU: curves {gc} / {cc}, views {gv} / {cv}")
+    if gv != cv or max(abs(a - b) for a, b in zip(gc, cc)) > 0:
+        raise AssertionError("phase 12(d): the card's object NBV disagrees with the CPU's")
+    nbv_kernel_checks(params, assets, obj, res.n_points, dev, smi)
+    log(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return {"nbv": nbv_l, "nbv_oracle": or_l, "object_nbv": obj_l}
+
+
+def nbv_kernel_checks(params, assets, obj, n_points, dev, smi):
+    """Phase 12(e): the kernels at the shapes only the NBV paths give them,
+    against their plain versions bit for bit, with their times and
+    bounds: K1 on the oracle's 20 candidate frames in one launch, K3 on
+    the 2M-slot buffer up to the oracle run's last count (its covered
+    points' shape), the scene-axis K3 on the 20 candidates' frames
+    against one GT, and K2 on the object NBV's visibility rays."""
+    import numpy as np
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.eval.macarons_nbv import C_MAX, ROT_SHIFTS
+    from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics, get_camera_RT
+    from nextbestpath_tpu_torch.ops.coverage import (min_sq_dists_plain,
+                                                     min_sq_dists_scenes_plain)
+    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tri_soa,
+                                                     ray_hits_pinhole_plain,
+                                                     ray_hits_plain, tris_to_soa)
+    from nextbestpath_tpu_torch.planning.grid_paths import DIRS
+
+    intr = CameraIntrinsics(int(params.image_height), int(params.image_width),
+                            float(params.fov_degrees), float(params.camera_znear),
+                            float(params.zfar))
+    zn, zf = float(intr.znear), float(intr.zfar)
+    soa = tris_to_soa(torch.from_numpy(assets.tris).to(dev))
+    n_tris = torch.tensor([assets.n_tris], dtype=torch.int32, device=dev)
+    start = np.asarray(assets.start_cam_idx)
+    idx = []
+    for dl, dh in DIRS:
+        for shift in ROT_SHIFTS:
+            i = start.copy()
+            i[0] = min(max(i[0] + dl, 0), assets.pose_l - 1)
+            i[2] = min(max(i[2] + dh, 0), assets.pose_h - 1)
+            i[4] = (i[4] + shift) % assets.n_azim
+            idx.append(i)
+    poses = torch.tensor(assets.pose_from_idx(np.stack(idx)), dtype=torch.float32,
+                         device=dev)
+    R, T = get_camera_RT(poses[:, :3], poses[:, 3:])
+    eyes, dirs = frame_rays(R, T, intr)
+    ph = pinhole_tri_soa(soa, eyes)
+    dirs = dirs.contiguous()
+    err = compare_hits(f"phase 12(e) K1 ray_hits_pinhole ({C_MAX} candidate frames, one launch)",
+                       kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf),
+                       ray_hits_pinhole_plain(dirs, ph, n_tris, zn, zf),
+                       dirs.shape[0] * dirs.shape[1])
+    n = dirs.shape[0] * dirs.shape[1]
+    ops = n * assets.n_tris * OPS_K1
+    bound = bound_ms(n * 12 + ph.numel() * 4 + n * 12, ops)
+    ms = kernels.device_ms(lambda: kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf), 20)
+    plain = kernels.device_ms(lambda: ray_hits_pinhole_plain(dirs, ph, n_tris, zn, zf), 1, 0)
+    log(f"phase 12(e) K1 {C_MAX} frames x {dirs.shape[1]} rays x {assets.n_tris} tris [{smi}]: "
+        f"{ms:.4f} ms (plain {plain:.2f} ms, bound {bound[0]:.4f} ms by {bound[1]}, "
+        f"ceiling {ceiling_ms(ops):.4f} ms), max_abs_err {err:.1e}")
+
+    # K3 over the buffer's capacity, its loop cut at the count; the
+    # candidates' frames (a count each) against one GT on the scene axis.
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    gt = torch.from_numpy(assets.gt_surface).to(dev)
+    lo = gt.amin(0).cpu()
+    span = (gt.amax(0) - gt.amin(0)).cpu()
+    cap = int(params.full_pc_capacity)
+    s = (lo + span * torch.rand((cap, 3), generator=gen)).to(dev)
+    got = kernels.min_sq_dists(gt, s, n_points)
+    want = min_sq_dists_plain(gt, s, n_points)
+    same = bool(torch.equal(got, want))
+    ms = kernels.device_ms(lambda: kernels.min_sq_dists(gt, s, n_points), 10)
+    plain = kernels.device_ms(lambda: min_sq_dists_plain(gt, s, n_points), 1, 0)
+    ops = gt.shape[0] * n_points * OPS_K3
+    bound = bound_ms((gt.shape[0] + n_points) * 12 + gt.shape[0] * 4, ops)
+    log(f"phase 12(e) K3 {gt.shape[0]} GT x {cap} slots, {n_points} valid [{smi}]: bit for bit "
+        f"{same}, {ms:.4f} ms (plain {plain:.2f} ms, bound {bound[0]:.4f} ms by {bound[1]}, "
+        f"ceiling {ceiling_ms(ops):.4f} ms)")
+    n_slots = int(params.points_per_frame)
+    counts = torch.randint(0, n_slots + 1, (C_MAX,), generator=gen).to(torch.int32)
+    counts[:2] = torch.tensor([n_slots, 0], dtype=torch.int32)
+    sc = (lo + span * torch.rand((C_MAX, n_slots, 3), generator=gen)).to(dev)
+    g = gt.expand(C_MAX, -1, -1).contiguous()
+    counts = counts.to(dev)
+    got = kernels.min_sq_dists_scenes(g, sc, counts)
+    same_s = bool(torch.equal(got, min_sq_dists_scenes_plain(g, sc, counts)))
+    ms_s = kernels.device_ms(lambda: kernels.min_sq_dists_scenes(g, sc, counts), 10)
+    plain_s = kernels.device_ms(lambda: min_sq_dists_scenes_plain(g, sc, counts), 1, 0)
+    pairs = gt.shape[0] * int(counts.sum())
+    bound = bound_ms(g.numel() * 4 + int(counts.sum()) * 12 + g.shape[0] * g.shape[1] * 4,
+                     pairs * OPS_K3)
+    log(f"phase 12(e) K3 scene axis {C_MAX} x {gt.shape[0]} GT x {n_slots} samples, counts "
+        f"{int(counts.min())}-{int(counts.max())} [{smi}]: bit for bit {same_s}, {ms_s:.4f} ms "
+        f"(plain {plain_s:.2f} ms, bound {bound[0]:.4f} ms by {bound[1]}, ceiling "
+        f"{ceiling_ms(pairs * OPS_K3):.4f} ms)")
+
+    # K2 on one view's visibility rays of the object.
+    o_soa = tris_to_soa(torch.from_numpy(obj.tris).to(dev))
+    surface = torch.from_numpy(obj.gt_surface[:2048]).to(dev)
+    cam = torch.from_numpy(obj.x_max * 1.5).to(dev)
+    origins = cam.expand(surface.shape[0], 3).contiguous()
+    vdirs = (surface - origins).contiguous()
+    err2 = compare_hits("phase 12(e) K2 ray_hits (object visibility)",
+                        kernels.ray_hits(origins, vdirs, o_soa, obj.n_tris, 1e-4, 0.999),
+                        ray_hits_plain(origins, vdirs, o_soa, obj.n_tris, 1e-4, 0.999),
+                        surface.shape[0])
+    ms = kernels.device_ms(lambda: kernels.ray_hits(origins, vdirs, o_soa, obj.n_tris,
+                                                    1e-4, 0.999), 20)
+    plain = kernels.device_ms(lambda: ray_hits_plain(origins, vdirs, o_soa, obj.n_tris,
+                                                     1e-4, 0.999), 3)
+    ops = surface.shape[0] * obj.n_tris * OPS_K2
+    bound = bound_ms(surface.shape[0] * 24 + o_soa.numel() * 4 + surface.shape[0] * 12, ops)
+    log(f"phase 12(e) K2 {surface.shape[0]} visibility rays x {obj.n_tris} tris [{smi}]: "
+        f"{ms:.4f} ms (plain {plain:.3f} ms, bound {bound[0]:.5f} ms by {bound[1]}, ceiling "
+        f"{ceiling_ms(ops):.5f} ms), max_abs_err {err2:.1e}")
+    if not (same and same_s):
+        raise AssertionError("phase 12(e): K3 differs from its plain version at the NBV shapes")
+
+
 @contextlib.contextmanager
 def cards_visible(visible):
     """CUDA_VISIBLE_DEVICES as the script found it (None: unset) inside the
@@ -1805,6 +2093,8 @@ def main() -> int:
     # parity checks on two gloo ranks sharing card 0 (and under NCCL on
     # two or more cards).
     by_path["dp"] = dp_phase(db9.entries, micro9, all_cards, smi)
+    # 12. The MACARONS greedy NBV: learned, oracle and object-level.
+    by_path.update(nbv_phase(params, assets, dev, smi))
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]

@@ -44,6 +44,20 @@ Gumbel noise, served by ``gumbel``: ``jax.random.categorical``), ``rot``
 and ``move``; ``init`` serves the initial capture. Every role is drawn
 every pose, and a scene has its own provider.
 
+The MACARONS next-best-view rollout (``eval/macarons_nbv.py``) takes the
+sequential schedule, one ``begin_group`` a ``next_key()`` of the JAX
+rollout: ``proxy`` (the proxy field's points), ``init`` (the initial
+capture's frames); then each pose ``cov`` (one score a buffer slot), in
+the learned mode ``tokens`` (``randint`` of shape (n_tokens,)), ``vs_idx``
+(``randint`` of shape (n_proxy_tokens,)) and ``occ`` (SconeOcc's
+permutations: ``permutation(role, N)`` from the first half of the key's
+split, ``permutation(role, n_s, step=s)`` from ``fold_in`` of its second
+half), ``rot`` when no candidate is valid, then ``gain`` (a candidate's
+Gumbel noise of ``jax.random.categorical``'s shape from each key of a
+C-way split, served by ``gumbels``) or, in the oracle mode, ``oracle`` (a
+candidate frame's pixel scores from each key of the split, served by
+``uniforms``), and ``move``.
+
 In both schedules ``step`` folds a substep's index into its group's key
 (``fold_in(key, s)``), and ``uniforms`` serves several draws from the split
 of one key (``k1, k2 = split(key)``, the stratified frame draw).
@@ -91,6 +105,18 @@ class TorchDraws:
                  step: Optional[int] = None) -> List[torch.Tensor]:
         return [self.uniform(role, s, step) for s in shapes]
 
+    def gumbels(self, role: str, shapes: Sequence[Sequence[int]],
+                step: Optional[int] = None) -> List[torch.Tensor]:
+        """Gumbel noise of each shape, from the split of one key."""
+        return [self.gumbel(role, s, step) for s in shapes]
+
+    def permutation(self, role: str, n: int,
+                    step: Optional[int] = None) -> torch.Tensor:
+        """A random permutation of range(n), int64 on the device."""
+        perm = torch.randperm(int(n), generator=self.gen,
+                              device=self.gen_device)
+        return perm.to(self.device)
+
     def gumbel(self, role: str, shape: Sequence[int],
                step: Optional[int] = None) -> torch.Tensor:
         """Standard Gumbel noise -log(-log(u)), u uniform in [tiny, 1),
@@ -100,9 +126,11 @@ class TorchDraws:
         return -torch.log(-torch.log(u))
 
     def randint(self, role: str, low: IntLike, high: IntLike,
-                step: Optional[int] = None) -> torch.Tensor:
-        """Integer in [low, high) as a 0-d int64 tensor on the device."""
-        u = self.uniform(role, ()).double()
+                step: Optional[int] = None,
+                shape: Sequence[int] = ()) -> torch.Tensor:
+        """Integers in [low, high) as an int64 tensor of ``shape`` (0-d by
+        default) on the device."""
+        u = self.uniform(role, shape).double()
         lo, hi = (x.long() if isinstance(x, torch.Tensor) else int(x)
                   for x in (low, high))
         # Host bounds stay host scalars: no copy to the device.

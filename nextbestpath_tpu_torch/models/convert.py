@@ -8,6 +8,11 @@ port's ``conv_blocks``, ``up_convs`` and ``att_gates``. Conv kernels go from
 HWIO to OIHW and back. ``log_vars`` (the training loss's parameters) maps
 to the port's ``log_vars`` both ways. A checkpoint loads into the port as
 ``load_checkpoint`` -> ``flax_to_state_dict`` -> ``load_state_dict``.
+
+The SCONE models (``models/scone.py``) name their submodules as flax does,
+so their maps go by name: a ``Dense`` kernel (in, out) becomes a
+``Linear`` weight (out, in), a ``LayerNorm`` scale its weight, and back
+(``scone_occ_from_flax`` / ``scone_occ_to_flax``, ``scone_vis_*``).
 """
 
 from __future__ import annotations
@@ -120,3 +125,70 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
         params[head] = conv(head)
     params["log_vars"] = arr("log_vars")
     return params, stats
+
+
+def _named_from_flax(tree: Mapping, dtype, prefix: str = "",
+                     out: Dict[str, torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
+    out = {} if out is None else out
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            _named_from_flax(leaf, dtype, f"{prefix}{name}.", out)
+            continue
+        arr = np.asarray(leaf, dtype)
+        if name == "kernel":
+            out[f"{prefix}weight"] = torch.from_numpy(np.array(arr.T,
+                                                               order="C"))
+        elif name in ("scale", "bias"):
+            key = "weight" if name == "scale" else "bias"
+            out[f"{prefix}{key}"] = torch.from_numpy(np.array(arr))
+        else:
+            raise KeyError(f"unexpected flax leaf {prefix}{name}")
+    return out
+
+
+def _named_to_flax(sd: Mapping[str, torch.Tensor], dtype) -> Dict:
+    params: Dict = {}
+    for key, t in sd.items():
+        *path, leaf = key.split(".")
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        arr = t.detach().cpu().numpy().astype(dtype)
+        if leaf == "bias":
+            node["bias"] = arr
+        elif arr.ndim == 2:
+            node["kernel"] = np.ascontiguousarray(arr.T)
+        else:
+            node["scale"] = arr
+    return params
+
+
+def _params(tree: Mapping) -> Mapping:
+    return tree["params"] if "params" in tree else tree
+
+
+def scone_occ_from_flax(params: Mapping, dtype: np.dtype = np.float32
+                        ) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.scone.SconeOcc`` from its flax ``params``
+    (or the whole variables dict)."""
+    return _named_from_flax(_params(params), dtype)
+
+
+def scone_occ_to_flax(sd: Mapping[str, torch.Tensor],
+                      dtype: np.dtype = np.float32) -> Dict:
+    """flax ``params`` of ``SconeOcc`` from the port's state dict."""
+    return _named_to_flax(sd, dtype)
+
+
+def scone_vis_from_flax(params: Mapping, dtype: np.dtype = np.float32
+                        ) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.scone.SconeVis`` from its flax ``params``
+    (or the whole variables dict)."""
+    return _named_from_flax(_params(params), dtype)
+
+
+def scone_vis_to_flax(sd: Mapping[str, torch.Tensor],
+                      dtype: np.dtype = np.float32) -> Dict:
+    """flax ``params`` of ``SconeVis`` from the port's state dict."""
+    return _named_to_flax(sd, dtype)

@@ -72,6 +72,16 @@ def min_sq_dists_scenes_plain(g: torch.Tensor, s: torch.Tensor,
                         in zip(g, s, s_counts.tolist())])
 
 
+def min_sq_dists_scenes(g: torch.Tensor, s: torch.Tensor,
+                        s_counts: torch.Tensor) -> torch.Tensor:
+    """K3 on a scene axis: g (B, G, 3), s (B, S, 3) f32, s_counts (B,)
+    int32 -> (B, G), one launch for CUDA tensors, the plain version for CPU
+    tensors."""
+    if g.device.type == "cpu":
+        return min_sq_dists_scenes_plain(g, s, s_counts)
+    return kernels.min_sq_dists_scenes(g, s, s_counts)
+
+
 def min_dists(gt: torch.Tensor, pts: torch.Tensor, pts_valid: torch.Tensor,
               s_count=None) -> torch.Tensor:
     """Min ||gt_i - pts_j|| over the valid pts, (G,).
@@ -198,11 +208,7 @@ def coverage_percentage_scenes(gt: torch.Tensor, pts: torch.Tensor,
                                    torch.full_like(p, _S_SENTINEL)))
     s = torch.stack(samples).contiguous()
     g = gt.to(torch.float32).contiguous()
-    c = counts.to(torch.int32).contiguous()
-    if g.device.type == "cpu":
-        d2 = min_sq_dists_scenes_plain(g, s, c)
-    else:
-        d2 = kernels.min_sq_dists_scenes(g, s, c)
+    d2 = min_sq_dists_scenes(g, s, counts.to(torch.int32).contiguous())
     dmin = torch.sqrt(torch.clamp(d2, min=0.0))
     close = (dmin < threshold).to(torch.float32) * gt_valid
     cov = close.sum(dim=1) / torch.clamp(gt_valid.sum(dim=1), min=1)

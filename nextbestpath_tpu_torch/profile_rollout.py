@@ -63,14 +63,16 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .eval.macarons_nbv import NBV_STAGES
 from .eval.nbp_planning import (MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES,
                                 NBPPlanningRollout, main_path_setup,
                                 seeded_nbp)
 from .eval.scan_rollout import ScanRollout
 
-STAGES = ("coverage", "observe", "projections", "model_input", "gt_layout",
-          "unet", "plan", "move", "pre", "post", "forward", "backward",
-          "accumulate", "optimizer", "grad_all_reduce")
+STAGES = tuple(dict.fromkeys((
+    "coverage", "observe", "projections", "model_input", "gt_layout", "unet",
+    "plan", "move", "pre", "post", "forward", "backward", "accumulate",
+    "optimizer", "grad_all_reduce") + NBV_STAGES))
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
 

@@ -902,3 +902,62 @@ def test_scan_random_walk_captures_on_card():
         assert a.coverage_evolution == b.coverage_evolution
         assert np.array_equal(a.cam_positions, b.cam_positions)
         assert max(a.coverage_evolution[1:]) > a.coverage_evolution[0]
+
+
+@pytest.mark.cuda
+def test_macarons_nbv_on_card_matches_cpu():
+    """The MACARONS greedy NBV at 32x56 for 3 poses, learned and oracle,
+    and the object NBV, on the card against the CPU with one CPU
+    generator's draws: the same picks, coverage within 1e-3; on the card
+    K2 once (the tables), K1 once a move (and once a pose for the oracle's
+    20 candidate frames), K3 once a pose (and the oracle's covered points
+    and its candidates on a scene axis); the object NBV K2 once a view."""
+    _need_card()
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.assets.objects import generate_object
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.macarons_nbv import (
+        NBV_SMALL, NBV_SMALL_TOKENS, macarons_nbv_rollout, seeded_scone)
+    from nextbestpath_tpu_torch.eval.object_nbv import object_nbv_rollout
+
+    p = default_params(**NBV_SMALL)
+    assets = pack_generated_scene(generate_scene("simple", seed=6), params=p)
+    obj = generate_object(seed=6, n_gt_surface_points=512)
+    n = 3
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        occ, vis = seeded_scone(small=True)
+        for oracle in (False, True):
+            kernels.reset_launch_counts()
+            res = macarons_nbv_rollout(
+                assets, occ, vis, params=p, n_poses=n, seed=1, oracle=oracle,
+                draws=TorchDraws(1, torch.device(dev), "cpu"), device=dev,
+                **NBV_SMALL_TOKENS)
+            runs[dev, oracle] = (res, dict(kernels.LAUNCHES))
+        kernels.reset_launch_counts()
+        runs[dev, "object"] = (object_nbv_rollout(
+            obj, vis, n_views=4, n_candidates=8, n_tokens=64, seed=0,
+            device=dev, return_views=True), dict(kernels.LAUNCHES))
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    assert runs["cpu", False][1] == zero and runs["cpu", True][1] == zero
+    assert runs["cuda", False][1] == dict(zero, ray_hits=1,
+                                          ray_hits_pinhole=1 + n,
+                                          min_sq_dists=n)
+    assert runs["cuda", True][1] == dict(zero, ray_hits=1,
+                                         ray_hits_pinhole=1 + 2 * n,
+                                         min_sq_dists=2 * n,
+                                         min_sq_dists_scenes=n)
+    for oracle in (False, True):
+        g, c = runs["cuda", oracle][0], runs["cpu", oracle][0]
+        np.testing.assert_allclose(g.coverage_evolution, c.coverage_evolution,
+                                   atol=1e-3)
+        assert g.n_points == c.n_points
+        np.testing.assert_allclose(g.cam_positions, c.cam_positions,
+                                   atol=1e-4)
+        assert g.coverage_evolution[-1] > g.coverage_evolution[0] > 0.0
+    (g_curve, g_views), g_launch = runs["cuda", "object"]
+    (c_curve, c_views), _ = runs["cpu", "object"]
+    assert g_views == c_views and g_curve == c_curve
+    assert g_launch == dict(zero, ray_hits=4)
