@@ -142,6 +142,33 @@ Phases, each of which raises on failure (exit code != 0):
    2M-slot buffer, the scene-axis K3 on the 20 candidates' frames against
    one GT, K2 on the object's visibility rays).
 
+13. the MACARONS online trainer (``train/train_macarons.py::
+   train_macarons_online``) on the main path's scene at ``default_params()``
+   (256x456 RGB-D frames, 20000 proxy points, 512 + 512 tokens, a
+   262144-point surface store) with seeded ManyDepth (96 planes),
+   SconeOcc and SconeVis at the published widths, in f32 without TF32:
+   (a) perfect depth, the CLI's default, 8 poses after a 2-pose warm-up,
+   counts set to 0 just before and read just after (K2 once, K1 1 + 3 a
+   pose, K3 once a pose), coverage rising, finite losses, ms a pose, then
+   2 poses under the profiler for the device ms of each stage; (b)
+   ``learn_depth`` for 6 poses (the same counts), the depth step's and
+   ``depth_infer``'s device ms, the step's peak memory and finite
+   losses, ``render_rgbd``'s ms; (c) the full stack (learned and
+   predicted depth, a memory holding another trajectory, one replay loop
+   a pose, the remap every 3 poses) for 6 poses, its ms, and 4 poses
+   under the profiler for the stage split (the replay and the remap must
+   run); (d) ``TINY``
+   (128 + 128 tokens) on the card against the CPU with the same weights
+   and one CPU generator's draws: 3 perfect-depth poses (the same gains)
+   and 3 of the full stack (the same picks; the remap at the second
+   pose), coverage within 1e-3, losses within 1e-3 relative, and one
+   depth step on the same frames (losses within 1e-3 relative, the
+   gradient as close to the CPU's as the CPU's f32 gradient is to its
+   f64 one); (e) K1 (one RGB-D frame with its index, a move's four
+   frames), K2 (the scene tables) and K3 (the coverage call on a move's
+   buffer) at the trainer's shapes against their plain versions bit for
+   bit.
+
 Phase 3 also holds the scene-axis launches (K1, K3 and the planner
 kernels over B scenes, one count, lattice, start or goal a scene) against
 their plain versions and against stacked single-scene launches, bit for
@@ -206,6 +233,7 @@ OPS_BFS_NODE, OPS_WALK_STEP, BYTES_WALK_STEP = 16, 8, 5
 PEAK_INT32_OPS = 33.5e12
 
 TOL_COVERAGE = 1e-3    # small rollout: card vs CPU coverage curve
+TOL_MACARONS_LOSS = 1e-3  # TINY trainer: card vs CPU losses, relative
 
 
 def log(msg: str) -> None:
@@ -433,6 +461,428 @@ def small_scan_check(label, s_assets, small):
         raise AssertionError(f"{label}: the captured scan rollout differs from the eager one")
     if diff > TOL_COVERAGE or not same_path:
         raise AssertionError(f"{label}: the card's scan rollout disagrees with the CPU's")
+
+
+def kernel_device_ms(fn, k=6):
+    """One call of ``fn`` under the profiler: the device ms of all its
+    kernels and the k largest by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nextbestpath_tpu_torch.profile_rollout import _is_annotation
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not _is_annotation(e):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:k]
+    return sum(by_name.values()), [(name[:60], ms) for name, ms in top]
+
+
+def prewrite_memory(mem, path, H, W, n_proxy):
+    """Another trajectory (slot 1) already in the memory: 8 depth maps of
+    H x W and an occupancy snapshot of n_proxy proxy points, from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    for i in range(8):
+        d = rng.uniform(2.0, 30.0, (H, W)).astype(np.float32)
+        mem.save_depth(path, 1, i, d, np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+    mem.save_occupancy(path, 1, rng.uniform(0, 40, size=(n_proxy, 3)),
+                       rng.uniform(size=(n_proxy, 1)), rng.uniform(size=(n_proxy, 1)),
+                       rng.uniform(size=(n_proxy, 98)), np.ones((n_proxy, 1)))
+
+
+def finite(label, values, n=None):
+    import math
+    if (n is not None and len(values) != n) or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{label}: expected {n} finite values, got {values}")
+
+
+def macarons_train_phase(params, assets, dev, smi):
+    """Phase 13 (module docstring). Returns the launches by kernel of its
+    three counted paths: {"macarons_train", "macarons_depth",
+    "macarons_full"}."""
+    import shutil
+    import tempfile
+
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.assets import generate_scene, pack_generated_scene
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.nbp_planning import MAIN_PATH_SEED
+    from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics
+    from nextbestpath_tpu_torch.models.macarons import Macarons
+    from nextbestpath_tpu_torch.sim.memory import Memory
+    from nextbestpath_tpu_torch.sim.sensor import capture_rgbd
+    from nextbestpath_tpu_torch.train.train_macarons import (
+        AUG_SHAPES, MACARONS_STAGES, TINY, MacaronsTrainState, make_depth_steps,
+        train_macarons_online)
+
+    t_phase = time.perf_counter()
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    seed = MAIN_PATH_SEED
+    H, W = int(params.image_height), int(params.image_width)
+
+    # One seeded bundle a frame size, reused: a state takes the modules'
+    # variables when it is made, and training never writes them in place.
+    base = Macarons.create(seed, image_height=H, image_width=W, device=dev)
+    base_tiny = Macarons.create(seed, image_height=32, image_width=56)
+
+    def state(p=params, d=dev):
+        m = base if int(p.image_height) == H else base_tiny
+        return MacaronsTrainState.create(seed, params=p, model=m, device=d)
+
+    def counted(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        return (res, dict(kernels.LAUNCHES), torch.cuda.max_memory_allocated() / 2 ** 20,
+                time.perf_counter() - t0)
+
+    def train(st, n_poses, p=params, **kw):
+        return train_macarons_online(assets, st, params=p, n_poses=n_poses, seed=seed,
+                                     verbose=False, **kw)
+
+    def launches_for(n):
+        # K2 the scene tables; K1 the first move, then a pose's frame, its
+        # move's four frames (one launch) and the arrival frame; K3 the metric.
+        return dict(zero, ray_hits=1, ray_hits_pinhole=1 + 3 * n, min_sq_dists=n)
+
+    def lap(label, t0):
+        log(f"phase 13({label}) wall time {time.perf_counter() - t0:.1f} s")
+        return time.perf_counter()
+
+    # (a) Perfect depth, the CLI's default, after a 2-pose warm-up.
+    t_part = time.perf_counter()
+    train(state(), 2)
+    n_a = 8
+    st = state()
+    n_depth = sum(v.numel() for v in st.model.depth_vars.values())
+    n_occ = sum(v.numel() for v in st.model.occ_vars.values())
+    n_vis = sum(v.numel() for v in st.model.vis_vars.values())
+    logs, la, peak, wall = counted(lambda: train(st, n_a))
+    cov = logs["coverage"]
+    log(f"phase 13(a) MACARONS online trainer, perfect depth, simple/{seed}, {H}x{W}, "
+        f"{int(params.points_per_frame)} points a frame, {int(params.n_proxy_points)} proxy "
+        f"points, 512 + 512 tokens, SconeOcc {n_occ:,} / SconeVis {n_vis:,} parameters "
+        f"(ManyDepth {n_depth:,}, unused), {n_a} poses [{smi}]: {wall / n_a * 1e3:.2f} ms a "
+        f"pose, peak memory {peak:.0f} MiB, coverage {[round(c, 4) for c in cov]}, gains "
+        f"{logs['gain']}, occ loss {[round(v, 4) for v in logs['occ_loss']]}, cov loss "
+        f"{[round(v, 4) for v in logs['cov_loss']]}, launches {la}")
+    rises("phase 13(a)", cov)
+    finite("phase 13(a) occ loss", logs["occ_loss"], n_a)
+    finite("phase 13(a) cov loss", logs["cov_loss"], n_a)
+    expect_launches("phase 13(a)", la, launches_for(n_a))
+    st = state()
+    stage, prof_ms = nbv_stage_ms(lambda: train(st, 2), 2, MACARONS_STAGES)
+    log(f"phase 13(a) device ms a pose by stage (2 poses profiled, {prof_ms:.2f} ms a pose "
+        f"under the profiler, the scene tables included) [{smi}]: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()))
+    t_part = lap("a", t_part)
+
+    # (b) Online depth learning with the full-width seeded ManyDepth.
+    n_b = 6
+    st = state()
+    logs_b, lb, peak_b, wall_b = counted(lambda: train(st, n_b, learn_depth=True))
+    log(f"phase 13(b) learn_depth, ManyDepth {n_depth:,} parameters at {H}x{W}, 96 planes, "
+        f"{n_b} poses [{smi}]: {wall_b / n_b * 1e3:.2f} ms a pose, peak memory {peak_b:.0f} "
+        f"MiB, depth loss {[round(v, 5) for v in logs_b['depth_loss']]}, coverage "
+        f"{[round(c, 4) for c in logs_b['coverage']]}, launches {lb}")
+    finite("phase 13(b) depth loss", logs_b["depth_loss"], n_b - 3)
+    expect_launches("phase 13(b)", lb, launches_for(n_b))
+    intr = CameraIntrinsics(H, W, float(params.fov_degrees), float(params.camera_znear),
+                            float(params.zfar))
+    soa = tris_to_soa_on(assets, dev)
+    n_tris = torch.tensor([assets.n_tris], dtype=torch.int32, device=dev)
+    colors = torch.from_numpy(assets.tri_colors).to(dev)
+    poses = start_neighbour_poses(assets, dev)
+    frames = [capture_rgbd(soa, n_tris, p5, intr, tri_colors=colors) for p5 in poses]
+    step, infer = make_depth_steps(st.model, st.depth_tx, intr, params)
+    aug = TorchDraws(0, dev).uniforms("depth", AUG_SHAPES)
+    tgt, R, T = frames[1][0], frames[1][2], frames[1][3]
+    alphas = [frames[0], frames[2], frames[3]]
+    xa = torch.stack([f[0] for f in alphas])
+    Ra = torch.stack([f[2] for f in alphas])
+    Ta = torch.stack([f[3] for f in alphas])
+
+    def depth_step():
+        return step(st.model.depth_vars, st.depth_opt_state, tgt, R, T, xa, Ra, Ta, aug)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    _, _, photo, reg = depth_step()
+    step_peak = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    finite("phase 13(b) depth step losses", [float(photo), float(reg)], 2)
+    step_ms = kernels.device_ms(depth_step, reps=3)
+    infer_ms = kernels.device_ms(lambda: infer(st.model.depth_vars, tgt, R, T, xa[:2], Ra[:2],
+                                               Ta[:2]), reps=5)
+
+    def render():
+        return capture_rgbd(soa, n_tris, poses[1], intr, tri_colors=colors)
+
+    render_ms = kernels.device_ms(render, reps=20)
+    log(f"phase 13(b) depth_step (jitter, flip, ManyDepth forward and backward, photometric + "
+        f"regularity, Adam) [{smi}]: {step_ms:.2f} device ms, peak {step_peak:.0f} MiB over "
+        f"the live tensors, photometric {float(photo):.5f}, regularity {float(reg):.5f}; "
+        f"depth_infer {infer_ms:.2f} device ms; render_rgbd {render_ms:.4f} device ms a frame")
+    for label, fn in (("depth_step", depth_step), ("render_rgbd", render)):
+        total, top = kernel_device_ms(fn)
+        log(f"phase 13(b) {label} under the profiler [{smi}]: {total:.3f} device ms in "
+            f"kernels; the largest: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+    t_part = lap("b", t_part)
+
+    # (c) The whole stack: learned and predicted depth, a memory holding
+    # another trajectory, one replay loop a pose, the remap every 3 poses.
+    p_c = default_params(remap_every_n_poses=3)
+    n_c = 6
+    tmp = tempfile.mkdtemp(prefix="macarons_memory_")
+    try:
+        def full_stack(st, path, n=n_c):
+            mem = Memory([path], n_trajectories=2, current_epoch=0)
+            prewrite_memory(mem, path, H, W, int(params.n_proxy_points))
+            return train(st, n, p=p_c, learn_depth=True, use_perfect_depth=False,
+                         memory=mem, scene_memory_path=path, memory_replay_loops=1), mem
+
+        st = state()
+        (logs_c, mem), lc, peak_c, wall_c = counted(lambda: full_stack(st, tmp))
+        log(f"phase 13(c) full stack (learn_depth, predicted depth, memory replay 1 loop, "
+            f"remap every 3), {n_c} poses [{smi}]: {wall_c / n_c * 1e3:.2f} ms a pose "
+            f"(memory writes included), peak memory {peak_c:.0f} MiB, coverage "
+            f"{[round(c, 4) for c in logs_c['coverage']]}, depth loss "
+            f"{[round(v, 5) for v in logs_c['depth_loss']]}, replay occ "
+            f"{[round(v, 4) for v in logs_c['replay_occ_loss']]}, replay cov "
+            f"{[round(v, 4) for v in logs_c['replay_cov_loss']]}, launches {lc}")
+        finite("phase 13(c) replay occ loss", logs_c["replay_occ_loss"], n_c)
+        finite("phase 13(c) replay cov loss", logs_c["replay_cov_loss"], n_c)
+        finite("phase 13(c) depth loss", logs_c["depth_loss"], n_c - 3)
+        expect_launches("phase 13(c)", lc, launches_for(n_c))
+        if mem.n_frames(tmp, 0) != n_c or mem.n_depths(tmp, 0) != n_c:
+            raise AssertionError("phase 13(c): the memory does not hold the trajectory")
+        shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        # 4 poses: the remap runs at the fourth (pose index 3).
+        st_c = state()
+        n_prof = 4
+        stage_c, prof_c = nbv_stage_ms(lambda: full_stack(st_c, tmp, n_prof), n_prof,
+                                       MACARONS_STAGES)
+        log(f"phase 13(c) device ms a pose by stage ({n_prof} poses profiled, {prof_c:.2f} ms a "
+            f"pose under the profiler) [{smi}]: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stage_c.items()))
+        if not stage_c.get("replay", 0) > 0 or "remap" not in stage_c:
+            raise AssertionError(f"phase 13(c): the replay or the remap did not run: {stage_c}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t_part = lap("c", t_part)
+
+    # (d) TINY on the card against the CPU: 3 poses of (a) and of (c) (the
+    # remap at the second pose), the same seeded weights and one CPU
+    # generator's draws, then one depth step on the same frames.
+    tiny = default_params(**TINY)
+    tiny_c = default_params(**TINY, remap_every_n_poses=2)
+    t_assets = pack_generated_scene(generate_scene("simple", seed=2), params=tiny)
+    # The CPU tests' token counts: the CPU's SCONE steps bound the phase.
+    tiny_tokens = dict(n_tokens=128, n_proxy_tokens=128)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        dd = torch.device(d)
+        runs[d, "a"] = train_macarons_online(
+            t_assets, state(tiny, dd), params=tiny, n_poses=3, seed=3, verbose=False,
+            draws=TorchDraws(3, dd, "cpu"), **tiny_tokens)
+        path = tempfile.mkdtemp(prefix="macarons_memory_")
+        try:
+            mem = Memory([path], n_trajectories=2, current_epoch=0)
+            prewrite_memory(mem, path, 32, 56, 128)
+            runs[d, "c"] = train_macarons_online(
+                t_assets, state(tiny_c, dd), params=tiny_c, n_poses=3, seed=3, verbose=False,
+                draws=TorchDraws(3, dd, "cpu"), learn_depth=True, use_perfect_depth=False,
+                memory=mem, scene_memory_path=path, memory_replay_loops=1, **tiny_tokens)
+            runs[d, "c_poses"] = mem.load_poses(path)
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
+    for mode in ("a", "c"):
+        g, c = runs["cuda", mode], runs["cpu", mode]
+        diff = max(abs(a - b) for a, b in zip(g["coverage"], c["coverage"]))
+        keys = ("occ_loss", "cov_loss", "replay_occ_loss", "replay_cov_loss")
+        loss_err = max([abs(a - b) / max(abs(b), 1e-6) for k in keys
+                        for a, b in zip(g[k], c[k])] + [0.0])
+        # Perfect depth: the same gains. Predicted depth: the same picks
+        # (the poses the memory keeps); a gain counts points that the
+        # predicted depth's error mask (a threshold) may keep or drop.
+        if mode == "a":
+            same = g["gain"] == c["gain"]
+        else:
+            same = (runs["cuda", "c_poses"] == runs["cpu", "c_poses"]
+                    and all(abs(a - b) <= 2 for a, b in zip(g["gain"], c["gain"])))
+        same = same and all(len(g[k]) == len(c[k]) for k in keys)
+        log(f"phase 13(d) TINY {'perfect depth' if mode == 'a' else 'full stack'}, "
+            f"{len(g['coverage'])} poses, "
+            f"card vs CPU: coverage {g['coverage']} vs {c['coverage']} (max diff {diff:.2e}), "
+            f"gains {g['gain']} vs {c['gain']}, same picks {same}, largest relative loss "
+            f"difference {loss_err:.2e}")
+        if diff > TOL_COVERAGE or not same or loss_err > TOL_MACARONS_LOSS:
+            raise AssertionError("phase 13(d): the card's trainer disagrees with the CPU's")
+    tiny_depth_step_check(tiny, t_assets, state)
+    t_part = lap("d", t_part)
+    macarons_kernel_checks(params, assets, dev, smi)
+    lap("e", t_part)
+    log(f"phase 13 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return {"macarons_train": la, "macarons_depth": lb, "macarons_full": lc}
+
+
+def tiny_depth_step_check(tiny, t_assets, state):
+    """Phase 13(d)'s depth step: one step of the seeded TINY ManyDepth on
+    the card and on the CPU, on the same frames and draws, and on the CPU
+    in f64. The losses within TOL_MACARONS_LOSS relative; the gradient
+    (Adam's first moment after one step from zero, over 1 - b1) as close
+    to the CPU's as the CPU's f32 gradient is to its f64 one (the step's
+    own f32 rounding: the sampler's floors and the min over the
+    supervision frames make it far from smooth)."""
+    import torch
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics
+    from nextbestpath_tpu_torch.sim.sensor import capture_rgbd
+    from nextbestpath_tpu_torch.train.train_macarons import AUG_SHAPES, make_depth_steps
+    intr = CameraIntrinsics(32, 56, float(tiny.fov_degrees), float(tiny.camera_znear),
+                            float(tiny.zfar))
+    cpu = torch.device("cpu")
+    soa = tris_to_soa_on(t_assets, cpu)
+    n_tris = torch.tensor([t_assets.n_tris], dtype=torch.int32)
+    colors = torch.from_numpy(t_assets.tri_colors)
+    frames = [capture_rgbd(soa, n_tris, p5, intr, tri_colors=colors)
+              for p5 in start_neighbour_poses(t_assets, cpu)]
+    aug = TorchDraws(0, cpu).uniforms("depth", AUG_SHAPES)
+    out = {}
+    for d, dt in (("cuda", torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        st = state(tiny, torch.device(d))
+        step, _ = make_depth_steps(st.model, st.depth_tx, intr, tiny)
+        on = lambda x: x.to(d, dt)  # noqa: E731
+        dvars = {k: on(v) if v.is_floating_point() else v
+                 for k, v in st.model.depth_vars.items()}
+        tgt, alphas = frames[1], [frames[0], frames[2], frames[3]]
+        _, opt, photo, reg = step(
+            dvars, st.depth_tx.init(dvars), on(tgt[0]), on(tgt[2]), on(tgt[3]),
+            *(on(torch.stack([f[i] for f in alphas])) for i in (0, 2, 3)),
+            [[on(u) for u in aug[0]], on(aug[1])])
+        g = torch.cat([v.reshape(-1) for _, v in sorted(opt.mu.items())]).cpu().double()
+        out[d, dt] = (float(photo), float(reg), g / (1 - st.depth_tx.b1))
+    (pg, rg, gg), (pc, rc, gc), (_, _, g64) = out.values()
+    loss_err = max(abs(pg - pc) / max(abs(pc), 1e-6), abs(rg - rc) / max(abs(rc), 1e-6))
+    grad_err = float(torch.linalg.norm(gg - gc) / torch.linalg.norm(gc))
+    f32_err = float(torch.linalg.norm(gc - g64) / torch.linalg.norm(g64))
+    log(f"phase 13(d) TINY depth step, card vs CPU: photometric {pg:.6f} vs {pc:.6f}, "
+        f"regularity {rg:.6f} vs {rc:.6f} (largest relative difference {loss_err:.2e}), "
+        f"the gradient's relative difference {grad_err:.2e} (the CPU's f32 against its "
+        f"f64: {f32_err:.2e}; norm {float(torch.linalg.norm(gc)):.4e})")
+    if loss_err > TOL_MACARONS_LOSS or not grad_err <= f32_err:
+        raise AssertionError("phase 13(d): the card's depth step disagrees with the CPU's")
+
+
+def tris_to_soa_on(assets, dev):
+    import torch
+    from nextbestpath_tpu_torch.ops.raytrace import tris_to_soa
+    return tris_to_soa(torch.from_numpy(assets.tris).to(dev))
+
+
+def start_neighbour_poses(assets, dev):
+    """Four poses at the start position and its lattice neighbours, the
+    azimuth stepping round: (4,) of (5,) tensors, frames that overlap."""
+    import numpy as np
+    import torch
+    start = np.asarray(assets.start_cam_idx)
+    out = []
+    for k in range(4):
+        i = start.copy()
+        i[0] = min(max(i[0] + (k % 2), 0), assets.pose_l - 1)
+        i[4] = (i[4] + k // 2) % assets.n_azim
+        out.append(torch.tensor(assets.pose_from_idx(i), dtype=torch.float32, device=dev))
+    return out
+
+
+def macarons_kernel_checks(params, assets, dev, smi):
+    """Phase 13(e): K1, K2 and K3 at the trainer's shapes against their
+    plain versions bit for bit: one RGB-D frame (the index the shader reads
+    included), a move's four frames in one launch, the scene tables, and
+    the coverage metric's call on a buffer the trainer's first move fills."""
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics, get_camera_RT
+    from nextbestpath_tpu_torch.ops.coverage import (_S_SENTINEL, min_sq_dists_plain,
+                                                     n_sample_for, subsample_buffer)
+    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tri_soa,
+                                                     ray_hits_pinhole_plain, ray_hits_plain)
+    from nextbestpath_tpu_torch.sim.rollout import (TrajectoryBuffer, interpolate_move,
+                                                    move_and_capture)
+    from nextbestpath_tpu_torch.sim.sensor import PointBuffer
+    from nextbestpath_tpu_torch.sim.tables import table_rays
+    from nextbestpath_tpu_torch.planning.grid_paths import lattice_positions
+
+    intr = CameraIntrinsics(int(params.image_height), int(params.image_width),
+                            float(params.fov_degrees), float(params.camera_znear),
+                            float(params.zfar))
+    zn, zf = float(intr.znear), float(intr.zfar)
+    soa = tris_to_soa_on(assets, dev)
+    n_tris = torch.tensor([assets.n_tris], dtype=torch.int32, device=dev)
+    poses = start_neighbour_poses(assets, dev)
+    # One RGB-D frame.
+    R, T = get_camera_RT(poses[0][None, :3], poses[0][None, 3:])
+    eye, dirs = frame_rays(R, T, intr)
+    ph = pinhole_tri_soa(soa, eye)
+    dirs = dirs.contiguous()
+    compare_hits("phase 13(e) K1 ray_hits_pinhole (one render_rgbd frame, with its index)",
+                 kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf),
+                 ray_hits_pinhole_plain(dirs, ph, n_tris, zn, zf), dirs.shape[1])
+    # A move's four frames in one launch, then its points in a buffer.
+    n_steps = int(params.n_interpolation_steps)
+    mv = interpolate_move(poses[0], poses[1], n_steps, assets.n_azim)
+    R4, T4 = get_camera_RT(mv[:, :3], mv[:, 3:])
+    eye4, dirs4 = frame_rays(R4, T4, intr)
+    ph4 = pinhole_tri_soa(soa, eye4)
+    dirs4 = dirs4.contiguous()
+    compare_hits(f"phase 13(e) K1 ray_hits_pinhole (the move's {n_steps} frames, one launch)",
+                 kernels.ray_hits_pinhole(dirs4, ph4, n_tris, zn, zf),
+                 ray_hits_pinhole_plain(dirs4, ph4, n_tris, zn, zf),
+                 dirs4.shape[0] * dirs4.shape[1])
+    # The scene tables.
+    pos = lattice_positions(torch.from_numpy(assets.pose_origin).to(dev), assets.pose_l,
+                            assets.pose_h)
+    o, d = table_rays(pos)
+    o, d = o.contiguous(), d.contiguous()
+    compare_hits("phase 13(e) K2 ray_hits (the scene tables)",
+                 kernels.ray_hits(o, d, soa, n_tris, 1e-6, 3.4e38),
+                 ray_hits_plain(o, d, soa, assets.n_tris, 1e-6, 3.4e38), o.shape[0])
+    # The coverage metric's K3 call on the buffer of a first move.
+    draws = TorchDraws(0, dev)
+    pc = PointBuffer.create(int(params.full_pc_capacity), dev)
+    traj = TrajectoryBuffer.create(8, dev)
+    n_px = intr.image_height * intr.image_width
+    move_and_capture(soa, n_tris, poses[0], poses[1], pc, traj,
+                     [draws.uniform("move", (n_px,)) for _ in range(n_steps)], intr,
+                     n_steps=n_steps, n_azim=assets.n_azim,
+                     n_slots=int(params.points_per_frame),
+                     gathering_factor=float(params.gathering_factor),
+                     sensor_range=float(params.sensor_range))
+    gt = torch.from_numpy(assets.gt_surface).to(dev).contiguous()
+    n_sample = n_sample_for(gt.shape[0], pc.capacity)
+    idx, valid = subsample_buffer(draws.uniform("cov", (pc.capacity,)), pc.count, n_sample)
+    samp = torch.where(valid[:, None], pc.points[idx],
+                       torch.full_like(pc.points[idx], _S_SENTINEL)).contiguous()
+    got = kernels.min_sq_dists(gt, samp, pc.count)
+    want = min_sq_dists_plain(gt, samp, pc.count)
+    log(f"phase 13(e) K3 min_sq_dists (the coverage call: {gt.shape[0]} GT x {n_sample} "
+        f"samples, {int(pc.count)} valid) [{smi}]: bit for bit {torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        raise AssertionError("phase 13(e): K3 differs from its plain version at the "
+                             "trainer's coverage call")
+
 
 
 def expect_launches(label, got, want):
@@ -1412,24 +1862,26 @@ def multi_scene_phase(params, small, dev, smi):
     return {"batch": batch_l, "interleaved": inter_l, "walk": walk_l}
 
 
-def nbv_stage_ms(run, n_poses):
-    """Device ms a pose of each stage range of the NBV rollout ``run()``
+def nbv_stage_ms(run, n_poses, stage_names=None):
+    """Device ms a pose of each stage range of the rollout ``run()``
     (``torch.profiler``; ``profile_rollout.py``'s split: the activities
-    that start inside a range's device extent), and the profiled wall."""
+    that start inside a range's device extent), and the profiled wall.
+    ``stage_names``: the ranges to report (default the NBV's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from nextbestpath_tpu_torch.eval.macarons_nbv import NBV_STAGES
     from nextbestpath_tpu_torch.profile_rollout import (_device_spans,
                                                         _stage_device_us)
+    stage_names = stage_names or NBV_STAGES
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernel_spans, stages = _device_spans(prof.events())
-    out = {name: _stage_device_us(kernel_spans, spans) / 1e3 / n_poses
-           for name, spans in stages.items() if name in NBV_STAGES}
+    kernel_spans, stages = _device_spans(prof)
+    out = {name: _stage_device_us(kernel_spans, stages[name]) / 1e3 / n_poses
+           for name in stage_names if name in stages}
     return out, wall / n_poses * 1e3
 
 
@@ -2095,6 +2547,9 @@ def main() -> int:
     by_path["dp"] = dp_phase(db9.entries, micro9, all_cards, smi)
     # 12. The MACARONS greedy NBV: learned, oracle and object-level.
     by_path.update(nbv_phase(params, assets, dev, smi))
+    # 13. The MACARONS online trainer: perfect depth, learned depth, the
+    # full stack with the memory, the card against the CPU, the kernels.
+    by_path.update(macarons_train_phase(params, assets, dev, smi))
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]

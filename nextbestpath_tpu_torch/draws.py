@@ -58,9 +58,26 @@ C-way split, served by ``gumbels``) or, in the oracle mode, ``oracle`` (a
 candidate frame's pixel scores from each key of the split, served by
 ``uniforms``), and ``move``.
 
+The MACARONS online trainer (``train/train_macarons.py``) takes the
+sequential schedule, one ``begin_group`` a ``next_key()`` of the JAX
+trainer: ``proxy`` (the proxy field's points) and ``init`` (the first
+move's frames); then each pose ``cov`` (one score a buffer slot); with
+learned depth ``depth`` (the depth step's augmentation: ``uniforms`` of
+``[[(), (), (), (), ()], ()]``, the jitter's five draws from the split of
+the key's first half and the flip's from its second); with a memory, each
+replay loop's ``replay`` (SconeOcc's permutations) and ``depth`` again
+for the depth replay; ``frame`` (the frame's pixel scores); with the depth
+error logged ``store_cov`` (one score a store slot); ``rot`` at a dead
+end; ``proxy_tokens`` (``categorical``'s Gumbel noise, (n_proxy_tokens,
+P)); ``tokens`` (``randint`` of shape (n_tokens,)); ``move``;
+``new_frame``; ``scone`` (SconeOcc's permutations); and at a remap one
+``remap`` a re-inferred frame.
+
 In both schedules ``step`` folds a substep's index into its group's key
 (``fold_in(key, s)``), and ``uniforms`` serves several draws from the split
-of one key (``k1, k2 = split(key)``, the stratified frame draw).
+of one key (``k1, k2 = split(key)``, the stratified frame draw); an entry
+of its shapes that is itself a list takes that half of the split and
+splits it again.
 """
 
 from __future__ import annotations
@@ -101,9 +118,11 @@ class TorchDraws:
                        device=self.gen_device)
         return u.to(self.device)
 
-    def uniforms(self, role: str, shapes: Sequence[Sequence[int]],
-                 step: Optional[int] = None) -> List[torch.Tensor]:
-        return [self.uniform(role, s, step) for s in shapes]
+    def uniforms(self, role: str, shapes: Sequence, step: Optional[int] = None
+                 ) -> List:
+        """A draw of each shape; a list entry gives a list of draws."""
+        return [self.uniforms(role, s, step) if isinstance(s, list)
+                else self.uniform(role, s, step) for s in shapes]
 
     def gumbels(self, role: str, shapes: Sequence[Sequence[int]],
                 step: Optional[int] = None) -> List[torch.Tensor]:

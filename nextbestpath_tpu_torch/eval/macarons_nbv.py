@@ -131,8 +131,8 @@ def _write_last(proba: torch.Tensor, idx: torch.Tensor,
     proba[idx[keep]] = values[keep]
 
 
-def _candidates(cur: Tuple[int, int, int], blocked: np.ndarray, L: int,
-                H: int, n_azim: int):
+def neighbour_candidates(cur: Tuple[int, int, int], blocked: np.ndarray,
+                         L: int, H: int, n_azim: int):
     """The 4 x 5 neighbour slots (a unit move times an azimuth shift) and
     their validity; an invalid slot holds the current pose."""
     cands: List[Tuple[int, int, int]] = []
@@ -281,7 +281,7 @@ def macarons_nbv_rollout(
                                 vh, draws=draws, role=group("occ"))
                 _write_last(proxy.proba, vs_idx, occ[0])
 
-        cands, cand_valid = _candidates(cur, blocked, L, H, n_azim)
+        cands, cand_valid = neighbour_candidates(cur, blocked, L, H, n_azim)
         if not cand_valid.any():
             rot = int(draws.randint(group("rot"), 0, n_azim))
             cands[0] = (cur[0], cur[1], rot)

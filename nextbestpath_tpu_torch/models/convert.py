@@ -13,6 +13,13 @@ The SCONE models (``models/scone.py``) name their submodules as flax does,
 so their maps go by name: a ``Dense`` kernel (in, out) becomes a
 ``Linear`` weight (out, in), a ``LayerNorm`` scale its weight, and back
 (``scone_occ_from_flax`` / ``scone_occ_to_flax``, ``scone_vis_*``).
+
+ManyDepth (``models/manydepth.py``) maps by name too, ``params`` and
+``batch_stats`` together: a Conv kernel (HWIO) becomes an OIHW weight
+(``ConvTranspose`` included: the port's is a correlation with the kernel
+as stored), a BatchNorm ``scale``, ``bias``, ``mean`` and ``var`` its
+``weight``, ``bias``, ``running_mean`` and ``running_var``, and back
+(``manydepth_from_flax`` / ``manydepth_to_flax``).
 """
 
 from __future__ import annotations
@@ -192,3 +199,59 @@ def scone_vis_to_flax(sd: Mapping[str, torch.Tensor],
                       dtype: np.dtype = np.float32) -> Dict:
     """flax ``params`` of ``SconeVis`` from the port's state dict."""
     return _named_to_flax(sd, dtype)
+
+
+_MD_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def manydepth_from_flax(variables: Mapping, dtype: np.dtype = np.float32
+                        ) -> Dict[str, torch.Tensor]:
+    """State dict for ``models.manydepth.ManyDepth`` from its flax
+    variables (``params`` and ``batch_stats``, numpy leaves)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping, prefix: str, stats: bool) -> None:
+        for name, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                walk(leaf, f"{prefix}{name}.", stats)
+                continue
+            arr = np.asarray(leaf, dtype)
+            if stats:
+                key = _MD_STATS[name]
+            elif name == "kernel":
+                key, arr = "weight", arr.transpose(3, 2, 0, 1)
+            elif name in ("scale", "bias"):
+                key = "weight" if name == "scale" else "bias"
+            else:
+                raise KeyError(f"unexpected flax leaf {prefix}{name}")
+            out[f"{prefix}{key}"] = torch.from_numpy(np.array(arr, order="C"))
+
+    walk(variables["params"], "", False)
+    walk(variables.get("batch_stats", {}), "", True)
+    return out
+
+
+def manydepth_to_flax(sd: Mapping[str, torch.Tensor],
+                      dtype: np.dtype = np.float32) -> Dict:
+    """flax variables ``{"params", "batch_stats"}`` of ManyDepth from the
+    port's state dict: the inverse of ``manydepth_from_flax``."""
+    params: Dict = {}
+    stats: Dict = {}
+    inv = {v: k for k, v in _MD_STATS.items()}
+    for key, t in sd.items():
+        *path, leaf = key.split(".")
+        arr = t.detach().cpu().numpy().astype(dtype)
+        tree, name = params, leaf
+        if leaf in inv:
+            tree, name = stats, inv[leaf]
+        elif leaf == "weight":
+            if arr.ndim == 4:
+                name, arr = "kernel", np.ascontiguousarray(
+                    arr.transpose(2, 3, 1, 0))
+            else:
+                name = "scale"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = arr
+    return {"params": params, "batch_stats": stats}

@@ -60,16 +60,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-
-@contextmanager
-def cudnn_f32() -> Iterator[None]:
-    """cuDNN without TF32 inside the block; the caller's flag after it."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+from ..device import cudnn_f32
 
 
 class _GlobalBatchNorm(torch.autograd.Function):

@@ -17,21 +17,33 @@ from ..geometry.cameras import CameraIntrinsics, project_points, world_to_view
 
 def grid_sample_bilinear(img: torch.Tensor, gx: torch.Tensor,
                          gy: torch.Tensor) -> torch.Tensor:
-    """img (H, W); gx/gy normalised coordinates in [-1, 1] (gx indexes
-    the width, gy the height). Returns samples of gx's shape."""
-    H, W = img.shape
+    """img (H, W, C); gx/gy normalised coordinates in [-1, 1] (gx indexes
+    the width, gy the height). Returns samples of gx's shape with C last:
+    all channels from one set of corner indices."""
+    H, W, C = img.shape
     u = ((gx + 1.0) * W - 1.0) / 2.0
     v = ((gy + 1.0) * H - 1.0) / 2.0
-    u = torch.clamp(u, 0.0, W - 1.0)
-    v = torch.clamp(v, 0.0, H - 1.0)
+    # jnp.clip as minimum(maximum(.)): a tie splits the gradient (the
+    # depth step differentiates through u and v).
+    zero = u.new_zeros(())
+    u = torch.minimum(torch.maximum(u, zero), zero + (W - 1.0))
+    v = torch.minimum(torch.maximum(v, zero), zero + (H - 1.0))
     u0 = torch.clamp(torch.floor(u).to(torch.int64), 0, W - 2)
     v0 = torch.clamp(torch.floor(v).to(torch.int64), 0, H - 2)
-    du = u - u0
-    dv = v - v0
-    i00 = img[v0, u0]
-    i01 = img[v0, u0 + 1]
-    i10 = img[v0 + 1, u0]
-    i11 = img[v0 + 1, u0 + 1]
+    du = (u - u0)[..., None]
+    dv = (v - v0)[..., None]
+    # Rows of the flattened (H*W, C) image: index_select's backward is an
+    # index_add, where advanced indexing's sorts the indices and sums each
+    # run of duplicates serially (the cost volume repeats each feature
+    # pixel hundreds of times).
+    flat = img.reshape(H * W, C)
+    base = v0 * W + u0
+
+    def corner(off):
+        rows = flat.index_select(0, (base + off).reshape(-1))
+        return rows.reshape(*base.shape, C)
+
+    i00, i01, i10, i11 = corner(0), corner(1), corner(W), corner(W + 1)
     return (i00 * (1 - du) * (1 - dv) + i01 * du * (1 - dv)
             + i10 * (1 - du) * dv + i11 * du * dv)
 
@@ -52,4 +64,4 @@ def signed_distance_to_depth(points: torch.Tensor, zbuf: torch.Tensor,
     factor = -float(min(H, W))
     gx = factor / W * proj[..., 0]
     gy = factor / H * proj[..., 1]
-    return z - grid_sample_bilinear(depth, gx, gy)
+    return z - grid_sample_bilinear(depth[..., None], gx, gy)[..., 0]

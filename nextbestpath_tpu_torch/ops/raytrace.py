@@ -15,12 +15,12 @@ pairs, and loop over exactly the first ``n_tris`` triangles.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import kernels
-from ..geometry.cameras import CameraIntrinsics, _mat3, camera_center
+from ..geometry.cameras import CameraIntrinsics, _cross, _mat3, camera_center
 
 _DET_EPS = 1e-10
 _INF = 3.4e38
@@ -334,6 +334,45 @@ def render_depth(tri_soa: torch.Tensor, n_tris, R: torch.Tensor,
                  T: torch.Tensor, intr: CameraIntrinsics) -> torch.Tensor:
     """Depth frame (H, W): render_depth_batch of one camera."""
     return render_depth_batch(tri_soa, n_tris, R[None], T[None], intr)[0]
+
+
+def render_rgbd(tri_soa: torch.Tensor, n_tris, R: torch.Tensor,
+                T: torch.Tensor, intr: CameraIntrinsics,
+                tri_colors: Optional[torch.Tensor] = None,
+                ambient: float = 0.85, base_gray: float = 0.8
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rgb (H, W, 3), zbuf (H, W)) of camera (R, T): render_depth's frame
+    and a colour frame shaded from the same K1 launch's nearest-triangle
+    index. A hit pixel takes its triangle's colour (``tri_colors[idx]``,
+    else ``base_gray``) times the headlight Lambert term ``ambient + (1 -
+    ambient) |n . d|``, with n the triangle's unit e1 x e2 normal and d the
+    unit pixel ray; background pixels are black."""
+    eye, d_world = frame_rays(R[None], T[None], intr)
+    eye, d_world = eye[0], d_world[0]
+    t, _, idx = ray_hits_pinhole(eye, d_world, tri_soa, n_tris,
+                                 t_min=float(intr.znear),
+                                 t_max=float(intr.zfar))
+    hit = t < _INF
+    idx_c = torch.clamp(idx.long(), 0, tri_soa.shape[1] - 1)
+    e1 = tri_soa[3:6][:, idx_c].T
+    e2 = tri_soa[6:9][:, idx_c].T
+    n = _cross(e1, e2)
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
+                        min=1e-12)
+    d_n = d_world / torch.clamp(torch.linalg.norm(d_world, dim=-1,
+                                                  keepdim=True), min=1e-12)
+    lambert = torch.abs((n * d_n).sum(dim=-1))
+    shade = ambient + (1.0 - ambient) * lambert
+    if tri_colors is not None:
+        color = tri_colors.to(torch.float32)[idx_c]
+    else:
+        color = torch.full(idx_c.shape + (3,), base_gray, dtype=torch.float32,
+                           device=idx_c.device)
+    rgb = torch.where(hit[:, None], color * shade[:, None],
+                      torch.zeros_like(color))
+    zbuf = torch.where(hit, t, torch.full_like(t, -1.0))
+    H, W = intr.image_height, intr.image_width
+    return rgb.reshape(H, W, 3), zbuf.reshape(H, W)
 
 
 def segments_hit_mesh(starts: torch.Tensor, ends: torch.Tensor,

@@ -43,7 +43,8 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..config import Params, default_params
-from ..models.unet import NBP, as_float64, batch_norm_group, cudnn_f32, nbp_loss
+from ..device import cudnn_f32
+from ..models.unet import NBP, as_float64, batch_norm_group, nbp_loss
 from ..train.driver import seeded_train_model
 from ..train.replay import Experience, ReplayDB
 from ..train.train_nbp import (MICRO_BATCH, Dataset, LossAndGrads,

@@ -57,6 +57,7 @@ step's ranges add ``grad_all_reduce``.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import time
 
@@ -81,17 +82,19 @@ def _is_annotation(e) -> bool:
     return e.name in STAGES or bool(getattr(e, "is_user_annotation", False))
 
 
-def _device_spans(events):
+def _device_spans(prof):
     """(kernel spans, stage spans) on the device timeline, in us: the
     device's activities, and the device-side extent of each stage range
-    (the profiler's user annotations)."""
+    (the profiler's user annotations). Read from the profiler's raw
+    events: ``prof.events()`` builds a tree of every host operation first,
+    which takes minutes on a long trace."""
     kernels, stages = [], collections.defaultdict(list)
-    for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        span = (e.time_range.start, e.time_range.end)
-        if _is_annotation(e):
-            stages[e.name].append(span)
+        span = (e.start_ns() / 1e3, e.end_ns() / 1e3)
+        if e.name() in STAGES or e.is_user_annotation():
+            stages[e.name()].append(span)
         else:
             kernels.append(span)
     return sorted(kernels), stages
@@ -114,7 +117,9 @@ def _stage_device_us(kernels, spans) -> float:
     """Device time of the activities that start inside the stage's spans
     (nested stages count in each: ``plan`` holds ``projections`` and
     ``unet``)."""
-    return sum(_union_us([k for k in kernels if s <= k[0] < e])
+    starts = [k[0] for k in kernels]
+    return sum(_union_us(kernels[bisect.bisect_left(starts, s):
+                                 bisect.bisect_left(starts, e)])
                for s, e in spans)
 
 
@@ -272,7 +277,7 @@ def _profile(label: str, run, n: int) -> None:
         res = run(n)
         wall = time.perf_counter() - t0
     events = prof.events()
-    kernels, stage_spans = _device_spans(events)
+    kernels, stage_spans = _device_spans(prof)
     busy = _union_us(kernels) / 1e6
     u = "cycle" if label.startswith("train") else "pose"
     print(f"{label}{' rollout' if u == 'pose' else ''}, profiled {n} {u}s: {wall / n * 1e3:.2f} ms/{u} "

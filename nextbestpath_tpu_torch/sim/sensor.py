@@ -1,9 +1,11 @@
 """Depth sensor: render -> mask -> backproject -> fixed-budget subsample.
 
-Port of ``nextbestpath_tpu/sim/sensor.py`` (perfect-depth path): depth is
-the rendered zbuf clamped to [znear, zfar], the mask is zbuf > -1, and a
-random ``gathering_factor`` share of the valid pixels within
-``sensor_range`` is unprojected to world points, drawn iid or stratified.
+Port of ``nextbestpath_tpu/sim/sensor.py``. Depth is the rendered zbuf
+clamped to [znear, zfar], the mask is zbuf > -1, and a random
+``gathering_factor`` share of the valid pixels within ``sensor_range`` is
+unprojected to world points, drawn iid or stratified. ``capture_rgbd``
+renders a shaded colour frame beside the depth, for the online depth
+trainer.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch.nn.functional as F
 
 from ..geometry.cameras import (CameraIntrinsics, _mat3, camera_center,
                                 get_camera_RT)
-from ..ops.raytrace import render_depth_batch, render_depth_scenes
+from ..ops.raytrace import (render_depth_batch, render_depth_scenes,
+                            render_rgbd)
 
 
 class FramePoints(NamedTuple):
@@ -54,6 +57,20 @@ def capture_depth(tri_soa: torch.Tensor, n_tris, pose5: torch.Tensor,
     """Render a depth frame for a 5-D pose. Returns (zbuf, R, T)."""
     zbuf, R, T = capture_depth_batch(tri_soa, n_tris, pose5[None], intr)
     return zbuf[0], R[0], T[0]
+
+
+def capture_rgbd(tri_soa: torch.Tensor, n_tris, pose5: torch.Tensor,
+                 intr: CameraIntrinsics,
+                 tri_colors: Optional[torch.Tensor] = None,
+                 ambient: float = 0.85
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Render an RGB-D frame for a 5-D pose: (rgb (H, W, 3), zbuf, R, T),
+    depth and colour from one K1 launch (``render_rgbd``)."""
+    R, T = get_camera_RT(pose5[None, :3], pose5[None, 3:])
+    rgb, zbuf = render_rgbd(tri_soa, n_tris, R[0], T[0], intr,
+                            tri_colors=tri_colors, ambient=ambient)
+    return rgb, zbuf, R[0], T[0]
 
 
 def stratified_applies(n_px: int, n_slots: int,

@@ -49,7 +49,8 @@ from torch.profiler import record_function
 
 from ..config import Params, default_params
 from ..models.convert import flax_to_state_dict, state_dict_to_flax
-from ..models.unet import NBP, cudnn_f32, nbp_loss
+from ..device import cudnn_f32
+from ..models.unet import NBP, nbp_loss
 from .replay import Experience, ReplayDB
 
 MAX_PIXELS = 128  # pad width for per-experience target pixel lists

@@ -961,3 +961,84 @@ def test_macarons_nbv_on_card_matches_cpu():
     (c_curve, c_views), _ = runs["cpu", "object"]
     assert g_views == c_views and g_curve == c_curve
     assert g_launch == dict(zero, ray_hits=4)
+
+
+@pytest.mark.cuda
+def test_render_rgbd_on_card_matches_cpu():
+    """One RGB-D frame at the trainer's 256x456 on the card, one camera
+    for both devices, against the CPU's: K1 is bit-equal to its plain
+    version on the same device, but the rays the two devices build may
+    differ in an ulp, so a pixel on a triangle edge may change hands (at
+    most 1 in 10,000); elsewhere depth within rtol 1e-5 and colour within
+    1e-5. One K1 launch."""
+    _need_card()
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.geometry.cameras import get_camera_RT
+
+    assets = pack_generated_scene(generate_scene("simple", seed=8))
+    intr = CameraIntrinsics(256, 456)
+    pose = torch.tensor(assets.pose_from_idx(assets.start_cam_idx),
+                        dtype=torch.float32)
+    Rc, Tc = get_camera_RT(pose[None, :3], pose[None, 3:])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        soa = R.tris_to_soa(torch.from_numpy(assets.tris).to(dev))
+        rgb, zbuf = R.render_rgbd(
+            soa, assets.n_tris, Rc[0].to(dev), Tc[0].to(dev), intr,
+            tri_colors=torch.from_numpy(assets.tri_colors).to(dev))
+        out[dev] = (rgb.cpu(), zbuf.cpu(), kernels.LAUNCHES["ray_hits_pinhole"])
+    (rgb_g, z_g, n_g), (rgb_c, z_c, n_c) = out["cuda"], out["cpu"]
+    col = (rgb_g - rgb_c).abs().amax(dim=-1)
+    depth = (z_g - z_c).abs() <= 1e-5 * z_c.abs()
+    moved = ~depth | (col > 1e-5)
+    assert float(moved.float().mean()) <= 1e-4, (
+        int(moved.sum()), float((z_g - z_c).abs().max()), float(col.max()))
+    assert float((z_c > 0).float().mean()) > 0.5
+    assert n_g == 1 and n_c == 0
+
+
+@pytest.mark.cuda
+def test_macarons_trainer_on_card_matches_cpu():
+    """The MACARONS online trainer at TINY on the card against the CPU,
+    the same seeded weights and one CPU generator's draws: 3 perfect-depth
+    poses (the same gains, coverage within 1e-3, losses within 1e-3
+    relative; K2 once, K1 1 + 3 a pose, K3 once a pose on the card) and 4
+    poses with learned and predicted depth (the depth step at the fourth
+    pose: its loss within 1e-3 relative)."""
+    _need_card()
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.train.train_macarons import (
+        TINY, MacaronsTrainState, train_macarons_online)
+
+    p = default_params(**TINY)
+    assets = pack_generated_scene(generate_scene("simple", seed=2), params=p)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        for mode, n, kw in (("perfect", 3, {}),
+                            ("learned", 4, dict(learn_depth=True,
+                                                use_perfect_depth=False))):
+            kernels.reset_launch_counts()
+            st = MacaronsTrainState.create(0, params=p, device=dev)
+            logs = train_macarons_online(
+                assets, st, params=p, n_poses=n, seed=3, verbose=False,
+                draws=TorchDraws(3, torch.device(dev), "cpu"), **kw)
+            runs[dev, mode] = (logs, dict(kernels.LAUNCHES))
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    assert runs["cuda", "perfect"][1] == dict(zero, ray_hits=1,
+                                              ray_hits_pinhole=10,
+                                              min_sq_dists=3)
+    assert runs["cpu", "perfect"][1] == zero
+    g, c = runs["cuda", "perfect"][0], runs["cpu", "perfect"][0]
+    assert g["gain"] == c["gain"]
+    for mode in ("perfect", "learned"):
+        g, c = runs["cuda", mode][0], runs["cpu", mode][0]
+        np.testing.assert_allclose(g["coverage"], c["coverage"], atol=1e-3)
+        for k in ("occ_loss", "cov_loss", "depth_loss"):
+            assert len(g[k]) == len(c[k])
+            np.testing.assert_allclose(g[k], c[k], rtol=1e-3, atol=1e-6)
+    assert len(runs["cuda", "learned"][0]["depth_loss"]) == 1

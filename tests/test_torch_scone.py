@@ -193,7 +193,8 @@ def test_depth_sampling_matches():
     rng = np.random.default_rng(5)
     img = rng.uniform(1, 30, (24, 40)).astype(np.float32)
     g = rng.uniform(-1.3, 1.3, (2, 500)).astype(np.float32)
-    _close(TD.grid_sample_bilinear(_t(img), _t(g[0]), _t(g[1])),
+    _close(TD.grid_sample_bilinear(_t(img)[..., None], _t(g[0]),
+                                   _t(g[1]))[..., 0],
            JD.grid_sample_bilinear(jnp.asarray(img), g[0], g[1]))
     kw = dict(image_height=24, image_width=40)
     ii, jj = np.meshgrid(np.arange(24), np.arange(40), indexing="ij")
