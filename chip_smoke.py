@@ -169,6 +169,31 @@ Phases, each of which raises on failure (exit code != 0):
    buffer) at the trainer's shapes against their plain versions bit for
    bit.
 
+14. the pretrainers (``train/pretrain_depth.py``, ``train/pretrain_scone.py``,
+   what ``pretrain_depth_torch.py`` and ``pretrain_scone_torch.py`` run):
+   (a) ``pretrain_depth`` at ``default_params()`` (256x456 RGB-D frames,
+   seeded ManyDepth with 96 planes in train mode, f32 without TF32), batch
+   2, on ``simple`` 8 and 9 with the held-out ``simple``/708, 20 steps
+   evaluated every 10, counts set to 0 just before and read just after
+   (K2 once a scene, K1 three times a sample built, the held-out batch
+   included), finite losses, ms a step and peak memory, both checkpoints
+   read back, the steady ms a step (10- and 20-step runs), then 3 steps
+   under the profiler for the device ms of its stages (batch, step,
+   eval); (b) ``pretrain_scone`` both ways on 4 object and 2 interior
+   samples at the default sizes, 20 occupancy and 20 visibility steps of
+   4, the builders' ms a sample and the steps' ms and device ms,
+   counts as the code gives them (K1 once a view; K2 twice an object
+   sample, three times an interior one and once a walklet move tried);
+   (c) at 64x114 on the card against the CPU with the same weights and
+   one CPU generator's draws: 8 walks equal, 3 depth steps' losses and
+   the held-out error within 1e-3 relative, a sample of each kind (the
+   same decisions, points within 1e-5 of their scale) and 3 occupancy and
+   visibility steps within 1e-3; (d) K1 (one 256x456 RGB-D frame with its
+   index) and K2 (an interior sample's sight and candidate rays, the
+   lattice's inside test) against their plain versions bit for bit, and
+   the point-cloud planner's edge test on the ``insane`` lattice against
+   2M points (its ms and memory; on 5,000 points the CPU's edges).
+
 Phase 3 also holds the scene-axis launches (K1, K3 and the planner
 kernels over B scenes, one count, lattice, start or goal a scene) against
 their plain versions and against stacked single-scene launches, bit for
@@ -176,6 +201,11 @@ bit, at B = 4 and 8.
 
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
+
+    python3 chip_smoke.py --phase 14
+
+runs phases 1, 2 and 14 alone, a quick check of the pretrainers; it prints
+no kernels or device JSON.
 
     python3 chip_smoke.py --against DIR
 
@@ -735,6 +765,327 @@ def macarons_train_phase(params, assets, dev, smi):
     lap("e", t_part)
     log(f"phase 13 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
     return {"macarons_train": la, "macarons_depth": lb, "macarons_full": lc}
+
+
+def pretrain_phase(dev, smi):
+    """Phase 14 (module docstring). Returns the launches by kernel of its
+    two counted paths: {"pretrain_depth": ..., "pretrain_scone": ...}."""
+    import tempfile
+
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.assets import generate_scene, pack_generated_scene
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics
+    from nextbestpath_tpu_torch.models.manydepth import ManyDepth, flax_init_
+    from nextbestpath_tpu_torch.train import pretrain_scone as PS
+    from nextbestpath_tpu_torch.train.pretrain_depth import (
+        DEPTH_STAGES, load_depth_checkpoint, pretrain_depth)
+
+    t_phase = time.perf_counter()
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    params = default_params()
+    H, W = int(params.image_height), int(params.image_width)
+    scenes = [pack_generated_scene(generate_scene("simple", seed=s), params=params)
+              for s in (8, 9)]
+    ev = pack_generated_scene(generate_scene("simple", seed=708), params=params)
+
+    def counted(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        return (res, dict(kernels.LAUNCHES), torch.cuda.max_memory_allocated() / 2 ** 20,
+                time.perf_counter() - t0)
+
+    # (a) The depth pretrainer at full width: batch 2, 96 planes.
+    n_steps, batch = 20, 2
+    with tempfile.TemporaryDirectory(prefix="depth_pre_") as tmp:
+        def depth_run(steps=n_steps, out=tmp):
+            model = flax_init_(ManyDepth(CameraIntrinsics(H, W)), 8)
+            return pretrain_depth(scenes, ev, steps=steps, batch=batch, seed=8, out_dir=out,
+                                  log_dir=out, eval_every=10, image_height=H, image_width=W,
+                                  params=params, model=model, verbose=False, device=dev)
+
+        depth_run(2, os.path.join(tmp, "warm"))
+        (model, best), la, peak, wall = counted(depth_run)
+        with open(os.path.join(tmp, "depth_pre_loss.json")) as f:
+            log_a = json.load(f)
+        losses = log_a["loss"]
+        log(f"phase 14(a) pretrain_depth, ManyDepth at {H}x{W}, 96 planes, batch {batch}, "
+            f"simple/8-9 + held-out simple/708, {n_steps} steps, eval every 10 [{smi}]: "
+            f"{wall / n_steps * 1e3:.2f} ms a step (scene tables, the held-out batch and 2 "
+            f"evaluations with their checkpoints included), peak memory {peak:.0f} MiB, loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}, held-out error "
+            f"{[round(e['err'], 4) for e in log_a['eval_err']]}, launches {la}")
+        finite("phase 14(a) losses", losses, n_steps)
+        finite("phase 14(a) held-out errors", [e["err"] for e in log_a["eval_err"]], 2)
+        expect_launches("phase 14(a)", la, dict(zero, ray_hits=len(scenes) + 1,
+                                                ray_hits_pinhole=3 * batch * (n_steps + 1)))
+        for name in ("depth_pre_best.ckpt", "depth_pre_latest.ckpt"):
+            back = ManyDepth(CameraIntrinsics(H, W)).to(dev)
+            load_depth_checkpoint(os.path.join(tmp, name), back)
+            if name.endswith("latest.ckpt") and not all(
+                    torch.equal(v, model.state_dict()[k])
+                    for k, v in back.state_dict().items()):
+                raise AssertionError("phase 14(a): the latest checkpoint does not read back")
+        # Steady steps: two runs that evaluate only at their last step,
+        # 10 steps apart, so that the set-up and the evaluation cancel.
+        walls = []
+        for steps in (10, 20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model_s = flax_init_(ManyDepth(CameraIntrinsics(H, W)), 8)
+            pretrain_depth(scenes, ev, steps=steps, batch=batch, seed=8,
+                           out_dir=os.path.join(tmp, "steady"), log_dir=os.path.join(tmp, "steady"),
+                           eval_every=1000, image_height=H, image_width=W, params=params,
+                           model=model_s, verbose=False, device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        steady_ms = (walls[1] - walls[0]) / 10 * 1e3
+        stage, prof_ms = nbv_stage_ms(lambda: depth_run(3, os.path.join(tmp, "prof")), 3,
+                                      DEPTH_STAGES)
+        log(f"phase 14(a) steady {steady_ms:.2f} ms a step (batch and step, from 10- and 20-step "
+            f"runs); device ms a step by stage (3 steps profiled, {prof_ms:.2f} ms a step under "
+            f"the profiler, tables, the held-out batch and an evaluation included) [{smi}]: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()))
+
+    # (b) The SCONE pretrainers ("both") on 4 object and 2 interior samples.
+    def build_samples():
+        out, times = [], []
+        for seed in range(4):
+            t0 = time.perf_counter()
+            out.append(PS.make_pretrain_sample(seed, device=dev))
+            times.append(time.perf_counter() - t0)
+        for seed in range(2):
+            t0 = time.perf_counter()
+            out.append(PS.make_interior_sample(seed, scenes=2, device=dev))
+            times.append(time.perf_counter() - t0)
+        return out, times
+
+    build_samples()
+    PS._SCENE_CACHE.clear()
+    (samples, times), lb_samples, _, _ = counted(build_samples)
+    n_sc = 20
+
+    def scone_run():
+        t0 = time.perf_counter()
+        _, occ_l = PS.pretrain_scone_occ(n_steps=n_sc, samples=samples, batch=4,
+                                         verbose=False, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, vis_l = PS.pretrain_scone_vis(n_steps=n_sc, samples=samples, batch=4,
+                                         verbose=False, device=dev)
+        torch.cuda.synchronize()
+        return occ_l, vis_l, t1 - t0, time.perf_counter() - t1
+
+    (occ_l, vis_l, t_occ, t_vis), lb_steps, peak_b, _ = counted(scone_run)
+    lb = {k: lb_samples[k] + lb_steps[k] for k in lb_samples}
+    occ_dev, _ = kernel_device_ms(lambda: PS.pretrain_scone_occ(
+        n_steps=1, samples=samples, batch=4, verbose=False, device=dev))
+    vis_dev, _ = kernel_device_ms(lambda: PS.pretrain_scone_vis(
+        n_steps=1, samples=samples, batch=4, verbose=False, device=dev))
+    log(f"phase 14(b) pretrain_scone both, 4 object + 2 interior samples (1024 partial "
+        f"points, 512 queries, 16 candidates, 64x114 depth frames) [{smi}]: a sample "
+        f"{[round(t * 1e3, 1) for t in times]} ms (object, object, object, object, interior, "
+        f"interior; the first interior one packs its scene), occupancy {n_sc} steps of 4 "
+        f"{t_occ / n_sc * 1e3:.2f} ms a step, {occ_dev:.3f} device ms in kernels (loss "
+        f"{occ_l[0]:.4f} -> {occ_l[-1]:.4f}), visibility {t_vis / n_sc * 1e3:.2f} ms a step, "
+        f"{vis_dev:.3f} device ms ({vis_l[0]:.4f} -> {vis_l[-1]:.4f}), "
+        f"peak memory of the steps {peak_b:.0f} MiB, launches {lb}")
+    finite("phase 14(b) occ losses", occ_l, n_sc)
+    finite("phase 14(b) vis losses", vis_l, n_sc)
+    # A sample: K1 once a view; an object sample K2 twice (the inside test
+    # and the candidates' visibility rays), an interior one three times
+    # (the sight carving, the candidates' inside test, their coverage
+    # rays) and once a walklet move tried (one to four a move).
+    k2_lo, k2_hi = 4 * 2 + 2 * (3 + 3), 4 * 2 + 2 * (3 + 4 * 3)
+    if (lb["ray_hits_pinhole"] != 4 * 3 + 2 * 4 or not k2_lo <= lb["ray_hits"] <= k2_hi
+            or lb_steps["ray_hits"] or lb_steps["ray_hits_pinhole"]):
+        raise AssertionError(f"phase 14(b): launches {lb_samples} building the samples "
+                             f"(K1 20, K2 {k2_lo}-{k2_hi} expected), {lb_steps} training")
+
+    # (c) TINY on the card against the CPU, one CPU generator's draws.
+    pretrain_tiny_check(dev, smi)
+    # (d) K1 and K2 at this path's shapes against their plain versions.
+    pretrain_kernel_checks(params, scenes[0], samples[4], dev, smi)
+    log(f"phase 14 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return {"pretrain_depth": la, "pretrain_scone": lb}
+
+
+def pretrain_tiny_check(dev, smi):
+    """Phase 14(c): the depth pretrainer's walks and 3 steps at 64x114, and
+    a sample of each kind with 3 occupancy and visibility steps, on the
+    card and on the CPU with the same weights and one CPU generator's
+    draws."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from nextbestpath_tpu_torch.assets import generate_scene, pack_generated_scene
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics
+    from nextbestpath_tpu_torch.models.manydepth import ManyDepth, flax_init_
+    from nextbestpath_tpu_torch.models.scone import SconeOcc, SconeVis
+    from nextbestpath_tpu_torch.train import pretrain_scone as PS
+    from nextbestpath_tpu_torch.train.pretrain_depth import (_sample_walk,
+                                                             depth_scene_from_assets,
+                                                             pretrain_depth)
+
+    tiny = default_params(image_height=64, image_width=114, points_per_frame=256,
+                          full_pc_capacity=16384, n_gt_surface_points=1024)
+    sc = [pack_generated_scene(generate_scene("simple", seed=8), params=tiny)]
+    ev = pack_generated_scene(generate_scene("simple", seed=708), params=tiny)
+    walks, runs, samples, losses = {}, {}, {}, {}
+    for d in ("cuda", "cpu"):
+        dd = torch.device(d)
+        draws = TorchDraws(8, dd, "cpu")
+        scene = depth_scene_from_assets(sc[0], dd)
+        walks[d] = torch.stack([torch.stack(_sample_walk(scene, draws, sc[0].n_azim, 3,
+                                                         step=b)).cpu() for b in range(8)])
+        with tempfile.TemporaryDirectory() as tmp:
+            model = flax_init_(ManyDepth(CameraIntrinsics(64, 114)), 0)
+            pretrain_depth(sc, ev, steps=3, batch=1, seed=8, out_dir=tmp, log_dir=tmp,
+                           eval_every=3, image_height=64, image_width=114, params=tiny,
+                           model=model, draws=TorchDraws(8, dd, "cpu"), verbose=False,
+                           device=dd)
+            with open(os.path.join(tmp, "depth_pre_loss.json")) as f:
+                runs[d] = json.load(f)
+        small = dict(n_partial=256, n_query=128, n_candidates=4, n_views=2)
+        samples[d] = [PS.make_pretrain_sample(0, **small, device=dd,
+                                              draws=TorchDraws(0, dd, "cpu")),
+                      PS.make_interior_sample(1, **small, scenes=2, device=dd,
+                                              draws=TorchDraws(1, dd, "cpu"))]
+        torch.manual_seed(0)
+        occ, vis = SconeOcc(seq_len=256), SconeVis()
+        kw = dict(n_steps=3, seed=0, samples=samples["cuda"], batch=2, verbose=False,
+                  device=dd)
+        losses[d] = (PS.pretrain_scone_occ(model=occ, draws=TorchDraws(0, dd, "cpu"), **kw)[1]
+                     + PS.pretrain_scone_vis(model=vis, draws=TorchDraws(0, dd, "cpu"), **kw)[1])
+    same_walks = torch.equal(walks["cuda"], walks["cpu"])
+    g, c = runs["cuda"], runs["cpu"]
+    vals_g = g["loss"] + [e["err"] for e in g["eval_err"]]
+    vals_c = c["loss"] + [e["err"] for e in c["eval_err"]]
+    depth_err = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(vals_g, vals_c))
+    same_samples, pts_err = True, 0.0
+    for a, b in zip(samples["cuda"], samples["cpu"]):
+        for f in ("query_x", "query_occ", "candidate_cams", "gt_coverage"):
+            same_samples = same_samples and np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("partial_pc", "view_harmonics"):
+            x, y = getattr(a, f), getattr(b, f)
+            pts_err = max(pts_err, float(np.abs(x - y).max() / np.abs(y).max()))
+    scone_err = max(abs(a - b) / max(abs(b), 1e-6)
+                    for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"phase 14(c) 64x114 card vs CPU [{smi}]: 8 walks equal {same_walks}; depth losses "
+        f"{[round(v, 6) for v in g['loss']]} vs {[round(v, 6) for v in c['loss']]}, held-out "
+        f"error {vals_g[-1]:.6f} vs {vals_c[-1]:.6f} (largest relative difference "
+        f"{depth_err:.2e}); samples' decisions equal {same_samples}, points and harmonics "
+        f"within {pts_err:.2e} of their scale; SCONE losses largest relative difference "
+        f"{scone_err:.2e}")
+    if (not same_walks or depth_err > TOL_MACARONS_LOSS or not same_samples
+            or pts_err > 1e-5 or scone_err > TOL_MACARONS_LOSS):
+        raise AssertionError("phase 14(c): the card's pretrainers disagree with the CPU's")
+
+
+def pretrain_kernel_checks(params, assets, interior, dev, smi):
+    """Phase 14(d): K1 and K2 at the pretrainers' shapes against their
+    plain versions bit for bit: one 256x456 RGB-D frame of the depth
+    pretrainer with its index, and an interior sample's sight rays (4
+    cameras x 512 queries), candidate rays (16 x 512) and lattice inside
+    test."""
+    import numpy as np
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics, get_camera_RT
+    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, inside_test_rays,
+                                                     pinhole_tri_soa,
+                                                     ray_hits_pinhole_plain, ray_hits_plain)
+    from nextbestpath_tpu_torch.planning.grid_paths import lattice_positions
+    from nextbestpath_tpu_torch.train import pretrain_scone as PS
+
+    intr = CameraIntrinsics(int(params.image_height), int(params.image_width),
+                            float(params.fov_degrees), float(params.camera_znear),
+                            float(params.zfar))
+    soa = tris_to_soa_on(assets, dev)
+    n_tris = torch.tensor([assets.n_tris], dtype=torch.int32, device=dev)
+    pose = start_neighbour_poses(assets, dev)[0]
+    R, T = get_camera_RT(pose[None, :3], pose[None, 3:])
+    eye, dirs = frame_rays(R, T, intr)
+    ph = pinhole_tri_soa(soa, eye)
+    dirs = dirs.contiguous()
+    compare_hits(f"phase 14(d) K1 ray_hits_pinhole (one {intr.image_height}x"
+                 f"{intr.image_width} RGB-D frame, with its index)",
+                 kernels.ray_hits_pinhole(dirs, ph, n_tris, intr.znear, intr.zfar),
+                 ray_hits_pinhole_plain(dirs, ph, n_tris, intr.znear, intr.zfar),
+                 dirs.shape[1])
+    i_assets, i_soa = PS._interior_scene(0, dev)
+    i_n = torch.tensor([i_assets.n_tris], dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(0)
+    pos = lattice_positions(torch.from_numpy(i_assets.pose_origin).to(dev),
+                            i_assets.pose_l, i_assets.pose_h).reshape(-1, 3)
+    cams = pos[torch.from_numpy(rng.choice(pos.shape[0], 20, replace=False)).to(dev)]
+    gt = torch.from_numpy(i_assets.gt_surface[:512]).to(dev)
+    for label, c in (("sight rays, 4 cameras x 512 queries", cams[:4]),
+                     ("candidate rays, 16 x 512", cams[4:])):
+        o = c.repeat_interleave(gt.shape[0], dim=0).contiguous()
+        d = (gt.repeat(c.shape[0], 1) - o).contiguous()
+        compare_hits(f"phase 14(d) K2 ray_hits ({label})",
+                     kernels.ray_hits(o, d, i_soa, i_n, 1e-4, 0.999),
+                     ray_hits_plain(o, d, i_soa, i_assets.n_tris, 1e-4, 0.999), o.shape[0])
+    o, d = inside_test_rays(pos)
+    o, d = o.contiguous(), d.contiguous()
+    compare_hits(f"phase 14(d) K2 ray_hits (the inside test of {pos.shape[0]} lattice points)",
+                 kernels.ray_hits(o, d, i_soa, i_n, 1e-6, 3.4e38),
+                 ray_hits_plain(o, d, i_soa, i_assets.n_tris, 1e-6, 3.4e38), o.shape[0])
+    if not (np.isfinite(interior.partial_pc).all() and 0 < interior.query_occ.mean() < 1):
+        raise AssertionError("phase 14(d): the interior sample is degenerate")
+    edge_blocked_check(dev, smi)
+
+
+def edge_blocked_check(dev, smi):
+    """Phase 14(d), last: the point-cloud planner's edge test
+    (``planning/bidirectional.py::pc_edge_blocked``, chunked over the
+    points) on the ``insane`` lattice against a 2M-point buffer: its ms
+    and peak memory, and on a 5,000-point share the same edges as the
+    CPU's."""
+    import numpy as np
+    import torch
+    from nextbestpath_tpu_torch.assets import generate_scene, pack_generated_scene
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.planning.bidirectional import pc_edge_blocked
+    from nextbestpath_tpu_torch.planning.grid_paths import lattice_positions
+
+    a = pack_generated_scene(generate_scene("insane", seed=8),
+                             params=default_params(n_gt_surface_points=2048))
+    pos = lattice_positions(torch.from_numpy(a.pose_origin), a.pose_l, a.pose_h)
+    rng = np.random.default_rng(0)
+    verts = a.tris[:a.n_tris].reshape(-1, 3)
+    lo, hi = verts.min(axis=0), verts.max(axis=0)
+    n = 2 ** 21
+    pts = torch.from_numpy(rng.uniform(lo, hi, (n, 3)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    pos_d, pts_d, valid_d = pos.to(dev), pts.to(dev), valid.to(dev)
+    pc_edge_blocked(pos_d, pts_d[:4096], valid_d[:4096])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    full = pc_edge_blocked(pos_d, pts_d, valid_d)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    k = 5000
+    got = pc_edge_blocked(pos_d, pts_d[:k], valid_d[:k]).cpu()
+    want = pc_edge_blocked(pos, pts[:k], valid[:k])
+    log(f"phase 14(d) pc_edge_blocked, insane/8 lattice {a.pose_l}x{a.pose_h} "
+        f"({4 * a.pose_l * a.pose_h} edges) against {n:,} points [{smi}]: {ms:.1f} ms, "
+        f"peak {peak:.0f} MiB over the inputs, {int(full.sum())} edges blocked; on "
+        f"{k:,} points the card's edges equal the CPU's: {torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        raise AssertionError("phase 14(d): pc_edge_blocked on the card differs from the CPU's")
 
 
 def tiny_depth_step_check(tiny, t_assets, state):
@@ -2227,6 +2578,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", default=None,
                     help="another checkout whose K2 to time at phase 3's K2 shapes")
+    ap.add_argument("--phase", type=int, choices=[14], default=None,
+                    help="run phases 1, 2 and this one alone (no result line)")
     args = ap.parse_args()
     # The smoke runs on one card: expose only the first visible one (phase
     # 11's NCCL ranks, other processes, see every card).
@@ -2274,6 +2627,10 @@ def main() -> int:
     for line in str(info["log"]).splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+
+    if args.phase == 14:
+        pretrain_phase(dev, smi)
+        return 0
 
     # 3. Kernels against their plain versions at the main path's shapes.
     params, assets, model = main_path_setup()
@@ -2550,6 +2907,9 @@ def main() -> int:
     # 13. The MACARONS online trainer: perfect depth, learned depth, the
     # full stack with the memory, the card against the CPU, the kernels.
     by_path.update(macarons_train_phase(params, assets, dev, smi))
+    # 14. The pretrainers: depth at full width, SCONE on object and
+    # interior samples, the card against the CPU, the kernels.
+    by_path.update(pretrain_phase(dev, smi))
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]

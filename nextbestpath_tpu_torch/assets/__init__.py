@@ -15,3 +15,10 @@ from .scene_assets import (
     pad_assets_to_common,
 )
 from .dataset import SceneDataset, get_dataloader
+from .object_dataset import (
+    FrameDataset,
+    ObjectDataset,
+    adjust_mesh,
+    adjust_mesh_diagonally,
+    remove_heavy_files,
+)

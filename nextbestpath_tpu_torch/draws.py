@@ -73,6 +73,24 @@ P)); ``tokens`` (``randint`` of shape (n_tokens,)); ``move``;
 ``new_frame``; ``scone`` (SconeOcc's permutations); and at a remap one
 ``remap`` a re-inferred frame.
 
+The depth pretrainer (``train/pretrain_depth.py``) takes the sequential
+schedule: ``begin_group("eval")`` before the held-out batch (the JAX
+``PRNGKey(seed + 99991)``) and ``begin_group("batch")`` before each
+step's (``fold_in(key, step + 1)``); sample b's walklet draws with
+``step=b`` (``fold_in(group key, b)``), split three ways for the start,
+``cell`` (``gumbel`` of shape (L H,), ``categorical``'s noise) and ``a0``
+(``randint``), then again for each move, ``dir`` (``gumbel`` (4,)) and
+``da`` (``randint`` in [-2, 3)).
+
+The SCONE sample builders (``train/pretrain_scone.py``) take one ``view``
+draw a view (``step`` the view: the v-th split of ``PRNGKey(seed)``), and
+its pretrainers one ``begin_group("step")`` a step (the step key's split
+of the running key): ``idx`` (``randint`` of shape (batch,)), then for
+SconeOcc its permutations (role ``occ``, served as the online trainer's,
+from the second half of the step key's split). Pose validity
+(``sim/pose_validity.py``) takes one draw a call: ``pose`` (``gumbel``
+over the lattice) and ``range`` (``uniform`` of the lattice's shape).
+
 In both schedules ``step`` folds a substep's index into its group's key
 (``fold_in(key, s)``), and ``uniforms`` serves several draws from the split
 of one key (``k1, k2 = split(key)``, the stratified frame draw); an entry

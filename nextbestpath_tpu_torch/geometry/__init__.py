@@ -1,3 +1,5 @@
+from .spherical import (get_cartesian_coords, get_spherical_coords,
+                        sample_cameras_on_sphere)
 from .cameras import (
     CameraIntrinsics,
     camera_center,
@@ -9,5 +11,6 @@ from .cameras import (
     points_in_fov_mask,
     project_points,
     unproject_depth,
+    view_to_world_dirs,
     world_to_view,
 )

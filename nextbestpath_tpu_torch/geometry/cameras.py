@@ -135,6 +135,12 @@ def world_to_view(points: torch.Tensor, R: torch.Tensor, T: torch.Tensor):
     return _mat3(points, R) + T
 
 
+def view_to_world_dirs(dirs_view: torch.Tensor, R: torch.Tensor
+                       ) -> torch.Tensor:
+    """View-space directions -> world (the rotation only): d R^T."""
+    return _mat3(dirs_view, R.T)
+
+
 def project_points(points: torch.Tensor, R: torch.Tensor, T: torch.Tensor,
                    tan_half_fov: float) -> torch.Tensor:
     """World points -> (x_proj, y_proj, z_view)."""

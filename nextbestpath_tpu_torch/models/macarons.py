@@ -173,6 +173,20 @@ class Frozen:
         return {k: torch.zeros_like(g) for k, g in grads.items()}, state
 
 
+def adam_step_(module: torch.nn.Module, loss: torch.Tensor, tx, opt_state):
+    """One ``tx`` step of every parameter of ``module`` on the gradient of
+    ``loss`` (zero where it does not reach), in place, as the pretrainers
+    take it; returns the new state."""
+    params = dict(module.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    updates, opt_state = tx.update(dict(zip(params, grads)), opt_state)
+    with torch.no_grad():
+        for k, p in params.items():
+            p.add_(updates[k].to(p.dtype))
+    return opt_state
+
+
 def apply_updates(variables: Vars, updates: Vars) -> Vars:
     """optax ``apply_updates`` on the entries with updates; the others
     pass through."""

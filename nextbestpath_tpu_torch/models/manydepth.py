@@ -26,9 +26,16 @@ layouts:
   frame, composed with the target camera.
 
 Submodules carry flax's names, so ``models/convert.py::manydepth_from_flax``
-maps a flax tree by name. BatchNorm is always flax's eval mode
-(``models/resnet.py``). On the card the network runs in full f32: callers
-put it under ``device.py::full_f32`` (cuDNN and matmul TF32 off).
+maps a flax tree by name. ``forward(..., train=False)`` is flax's ``train``:
+BatchNorm's eval mode by default (the online trainer's), and with
+``train=True`` the batch statistics (``models/resnet.py``; the depth
+pretrainer's). Then ``stem`` and ``layer1`` run twice, on the targets and
+then on the B A context frames, each call normalising by its own batch and
+moving the running statistics in place, target first (as do the pose
+decoder's A calls with ``learn_pose``): the module's buffers after the
+forward are the ``batch_stats`` that flax's ``mutable`` returns. On the
+card the network runs in full f32: callers put it under
+``device.py::full_f32`` (cuDNN and matmul TF32 off).
 """
 
 from __future__ import annotations
@@ -82,9 +89,10 @@ class FeatureExtractor(nn.Module):
         self.ResNetStem_0 = ResNetStem()
         self.ResNetLayer_0 = ResNetLayer(64, 64, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x (B, 3, H, W) -> (B, 64, H/4, W/4)."""
-        return self.ResNetLayer_0(maxpool_stem(self.ResNetStem_0(x)))
+        return self.ResNetLayer_0(maxpool_stem(self.ResNetStem_0(x, train)),
+                                  train)
 
 
 def _warp_features(world_points: torch.Tensor, features: torch.Tensor,
@@ -218,11 +226,12 @@ class PoseDecoder(nn.Module):
         self.Conv_1 = Conv(256, 256, 3)
         self.Conv_2 = Conv(256, 6, 1)
 
-    def forward(self, target: torch.Tensor, source: torch.Tensor):
+    def forward(self, target: torch.Tensor, source: torch.Tensor,
+                train: bool = False):
         """target, source (B, 3, H, W) -> ((B, 3), (B, 3))."""
         x = torch.cat([target, source], dim=1)
-        x = maxpool_stem(self.stem(x))
-        x = self.ResNetLayer_1(self.ResNetLayer_0(x))
+        x = maxpool_stem(self.stem(x, train))
+        x = self.ResNetLayer_1(self.ResNetLayer_0(x, train), train)
         x = torch.relu(self.Conv_0(x))
         x = torch.relu(self.Conv_1(x))
         out = self.Conv_2(x).mean(dim=(2, 3)) * 0.01
@@ -282,7 +291,7 @@ class ManyDepth(nn.Module):
 
     def forward(self, x: torch.Tensor, R: torch.Tensor, T: torch.Tensor,
                 x_alpha: torch.Tensor, R_alpha: Optional[torch.Tensor] = None,
-                T_alpha: Optional[torch.Tensor] = None):
+                T_alpha: Optional[torch.Tensor] = None, train: bool = False):
         B, H, W, _ = x.shape
         A = x_alpha.shape[1]
         xc = nchw(x)
@@ -292,22 +301,23 @@ class ManyDepth(nn.Module):
                 raise ValueError("R_alpha/T_alpha required when "
                                  "learn_pose=False")
             xa5 = xa.reshape(B, A, 3, H, W)
-            pairs = [self.pose_decoder(xc, xa5[:, i]) for i in range(A)]
+            pairs = [self.pose_decoder(xc, xa5[:, i], train)
+                     for i in range(A)]
             aas = torch.stack([p[0] for p in pairs], dim=1)
             trs = torch.stack([p[1] for p in pairs], dim=1)
             R_alpha, T_alpha = PoseDecoder.compose(R[:, None], T[:, None],
                                                    aas, trs)
-        conv1 = self.stem(xc)
-        feats = self.layer1(maxpool_stem(conv1))
-        feats_a = self.layer1(maxpool_stem(self.stem(xa)))
+        conv1 = self.stem(xc, train)
+        feats = self.layer1(maxpool_stem(conv1), train)
+        feats_a = self.layer1(maxpool_stem(self.stem(xa, train)), train)
         h, w = feats.shape[-2:]
         feats_a = nhwc(feats_a).reshape(B, A, h, w, 64)
 
         reduced = self.cost_volume(nhwc(feats), R, T, feats_a, R_alpha,
                                    T_alpha)
-        layer2 = self.ResNetLayer_0(reduced)
-        layer3 = self.ResNetLayer_1(layer2)
-        layer4 = self.ResNetLayer_2(layer3)
+        layer2 = self.ResNetLayer_0(reduced, train)
+        layer3 = self.ResNetLayer_1(layer2, train)
+        layer4 = self.ResNetLayer_2(layer3, train)
         iconv5 = self.ExpansionLayer_0(layer4, layer3)
         iconv4 = self.ExpansionLayer_1(iconv5, layer2)
         disp4 = self.DisparityLayer_0(iconv4)

@@ -11,11 +11,17 @@ high the rest: a 3x3 stride-2 convolution pads (0, 1) on an even side and
 (1, 1) on an odd one, and a 1x1 stride-2 one pads nothing. The stem is 7x7
 stride 2 with (3, 3), and the max pool 3x3 stride 2 with (1, 1) of -inf.
 
-``BatchNorm`` is flax's in eval mode and only that: ``(x - mean) *
-(rsqrt(var + 1e-5) * scale) + bias`` from the running statistics, whatever
-``module.train()`` says. The JAX trainer applies ManyDepth with
-``train=False`` even while it takes gradients, so running statistics are
-used throughout.
+``BatchNorm`` is flax's ``nn.BatchNorm(use_running_average=not train)``,
+and the mode is the ``train`` argument that every forward here takes (flax's
+``train``), never ``module.train()``. With ``train=False`` (the default, and
+the online trainer's, which applies ManyDepth so even while it takes
+gradients) it is ``(x - mean) * (rsqrt(var + 1e-5) * scale) + bias`` from the
+running statistics. With ``train=True`` (the depth pretrainer's) it
+normalises by the batch's statistics over (N, H, W), ``mean = E[x]`` and
+``var = max(E[x^2] - E[x]^2, 0)``, and moves the running ones in place as
+flax's default momentum 0.99 does: ``running = 0.99 running + 0.01 batch``,
+with the biased variance. A module applied twice in one forward moves them
+twice, in call order, as flax's mutable ``batch_stats`` does.
 """
 
 from __future__ import annotations
@@ -62,7 +68,10 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` with the running statistics (eval mode)."""
+    """flax ``nn.BatchNorm`` (module docstring): the running statistics,
+    or with ``train`` the batch's, the running ones moved in place."""
+
+    momentum = 0.99  # flax's default
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -72,13 +81,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         def c(v):
             return v[None, :, None, None]
 
-        return (x - c(self.running_mean)) * c(mul) + c(self.bias)
+        if not train:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - c(self.running_mean)) * c(mul) + c(self.bias)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - c(mean)) * c(mul) + c(self.bias)
 
 
 class BasicBlock(nn.Module):
@@ -95,10 +112,10 @@ class BasicBlock(nn.Module):
             self.Conv_2 = Conv(cin, features, 1, strides, bias=False)
             self.BatchNorm_2 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = self.BatchNorm_1(self.Conv_1(y))
-        res = self.BatchNorm_2(self.Conv_2(x)) if self.shortcut else x
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), train))
+        y = self.BatchNorm_1(self.Conv_1(y), train)
+        res = self.BatchNorm_2(self.Conv_2(x), train) if self.shortcut else x
         return torch.relu(y + res)
 
 
@@ -110,8 +127,8 @@ class ResNetLayer(nn.Module):
         self.BasicBlock_0 = BasicBlock(cin, features, strides)
         self.BasicBlock_1 = BasicBlock(features, features, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.BasicBlock_1(self.BasicBlock_0(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.BasicBlock_1(self.BasicBlock_0(x, train), train)
 
 
 class ResNetStem(nn.Module):
@@ -123,8 +140,8 @@ class ResNetStem(nn.Module):
                            bias=False)
         self.BatchNorm_0 = BatchNorm(64)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return torch.relu(self.BatchNorm_0(self.Conv_0(x), train))
 
 
 def maxpool_stem(x: torch.Tensor) -> torch.Tensor:

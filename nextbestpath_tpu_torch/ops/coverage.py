@@ -1,8 +1,8 @@
 """Coverage metric over fixed-capacity point buffers.
 
-Port of ``nextbestpath_tpu/ops/coverage.py`` (the parts the rollouts run):
-the share of GT points with a reconstructed point within the threshold,
-against a random subsample of the cloud, and its AUC. Two samplers, as the
+Port of ``nextbestpath_tpu/ops/coverage.py``: the share of GT points with
+a reconstructed point within the threshold, against a random subsample of
+the cloud, its AUC, and the top-down recall ``pc_similarity``. Two samplers, as the
 JAX package's: the stride subsample (``fast_sampling=True``, the scan and
 the ``shared_rng`` host rollout) and the exact random permutation by a
 stable argsort over the whole capacity (``subsample_buffer``, the legacy
@@ -232,3 +232,39 @@ def compute_auc(y, dx: float = 1.0 / 40.0) -> float:
     y = np.asarray(y, dtype=np.float64)
     trapezoid = getattr(np, "trapezoid", None) or np.trapz
     return float(trapezoid(y, dx=dx) + y[0] * dx / 2.0)
+
+
+def pc_similarity(gt_pc: np.ndarray, full_pc: np.ndarray,
+                  px_per_unit: float = 5.0) -> float:
+    """Top-down binary-image recall of a reconstruction against the GT
+    cloud (the reference's calculate_similarity_pcs): both clouds rasterise
+    into an (x, z) grid sized from the GT's bounds at ``px_per_unit``
+    pixels a world unit, and the score is |GT & recon| / |GT| pixels. Host
+    numpy: the image size depends on the data, and the metric is an offline
+    diagnostic."""
+    gt_pc = np.asarray(gt_pc, np.float32)
+    full_pc = np.asarray(full_pc, np.float32)
+    if len(gt_pc) == 0:
+        return 0.0
+    x_min, x_max = float(gt_pc[:, 0].min()), float(gt_pc[:, 0].max())
+    z_min, z_max = float(gt_pc[:, 2].min()), float(gt_pc[:, 2].max())
+    W = max(int((x_max - x_min) * px_per_unit), 1)
+    H = max(int((z_max - z_min) * px_per_unit), 1)
+
+    def img(pc: np.ndarray) -> np.ndarray:
+        out = np.zeros((H, W), np.uint8)
+        if len(pc) == 0:
+            return out
+        x = np.rint((pc[:, 0] - x_min) / max(x_max - x_min, 1e-9)
+                    * (W - 1)).astype(np.int64)
+        z = np.rint((pc[:, 2] - z_min) / max(z_max - z_min, 1e-9)
+                    * (H - 1)).astype(np.int64)
+        out[z, x] = 1
+        return out
+
+    m = ((full_pc[:, 0] >= x_min) & (full_pc[:, 0] <= x_max)
+         & (full_pc[:, 2] >= z_min) & (full_pc[:, 2] <= z_max))
+    img_gt = img(gt_pc)
+    img_rec = img(full_pc[m])
+    total = int(img_gt.sum())
+    return float((img_gt & img_rec).sum() / total) if total else 0.0

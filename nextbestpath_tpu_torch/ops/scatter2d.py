@@ -1,8 +1,8 @@
 """Egocentric 2D projections for the NBP model inputs.
 
-Port of the parts of ``nextbestpath_tpu/ops/scatter2d.py`` that the
-planning rollouts reach: world -> egocentric 2D (translation only),
-rounding into an image grid, and count images by scatter-add. Counts are
+Port of ``nextbestpath_tpu/ops/scatter2d.py``: world -> egocentric 2D
+(translation only), rounding into an image grid, and count images by
+scatter-add (and ``scatter_mean_img``, a mean value a pixel). Counts are
 small integers in f32, so the order of the adds cannot change them.
 
 Scatters take a whole fixed-capacity buffer with its validity mask (for a
@@ -15,7 +15,7 @@ reads about 24 MB, which the card does in microseconds.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -75,6 +75,43 @@ def _scatter_add(shape: Tuple[int, int, int],
     out = torch.zeros((c + 1) * plane, dtype=torch.float32, device=ok.device)
     out.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
     return out[:c * plane].view(c, h, w)
+
+
+def scatter_count_img(points_2d: torch.Tensor, valid: torch.Tensor,
+                      grid_size: int, grid_range: Tuple[float, float],
+                      count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(S, S) count image of 2D points, those outside the grid dropped;
+    ``count`` (a prefix-compacted buffer's) keeps only the slots before it,
+    which are the valid ones anyway."""
+    ij = img_coords(points_2d, grid_size, grid_range)
+    ok = valid & _in_img(ij, grid_size)
+    if count is not None:
+        ok = ok & (torch.arange(ok.shape[0], device=ok.device) < count)
+    ij = ij.clamp(0, grid_size - 1)
+    return _scatter_add((1, grid_size, grid_size),
+                        (torch.zeros_like(ij[:, 0]), ij[:, 0], ij[:, 1]),
+                        ok)[0]
+
+
+def scatter_mean_img(points_2d: torch.Tensor, values: torch.Tensor,
+                     valid: torch.Tensor, grid_size: int,
+                     grid_range: Tuple[float, float]) -> torch.Tensor:
+    """(S, S): each pixel the mean of the values of the points that land
+    in it, 0 where none does (the reference's averaged-occupancy
+    projection, map_points_to_grid_optimized_poster: the sums of values and
+    of ones, divided where the count is positive)."""
+    ij = img_coords(points_2d, grid_size, grid_range)
+    ok = valid & _in_img(ij, grid_size)
+    ij = ij.clamp(0, grid_size - 1)
+    flat = (ij[:, 0].long() * grid_size + ij[:, 1].long())
+    vals = torch.where(ok, values.reshape(-1).to(torch.float32),
+                       torch.zeros((), device=ok.device))
+    acc = torch.zeros(grid_size * grid_size, dtype=torch.float32,
+                      device=ok.device).index_add_(0, flat, vals)
+    cnt = torch.zeros_like(acc).index_add_(0, flat, ok.to(torch.float32))
+    mean = torch.where(cnt > 0, acc / torch.clamp(cnt, min=1.0),
+                       torch.zeros_like(acc))
+    return mean.view(grid_size, grid_size)
 
 
 def count_img(points: torch.Tensor, valid: torch.Tensor,

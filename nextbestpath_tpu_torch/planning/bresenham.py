@@ -44,3 +44,7 @@ def bresenham_obstacle_count(x0: torch.Tensor, y0: torch.Tensor,
         y = torch.where(done, y, torch.where(step_y, y + sy, y))
         err = torch.where(done, err, new_err)
     return count.to(torch.int32)
+
+
+# The JAX package's vmapped name: the function above already takes N lines.
+bresenham_obstacle_count_v = bresenham_obstacle_count

@@ -10,67 +10,31 @@ package reads the other's files.
 The library is the repository's tracked ``native/libreplay_store.so``, read
 only (the JAX package loads the same file). When it does not load on this
 machine, ``native/replay_store.cpp`` is built with ``g++`` into the
-git-ignored ``nextbestpath_tpu_torch/_build/``; nothing is written under
-``native/``. ``native_available()`` is False only when neither loads.
+git-ignored ``nextbestpath_tpu_torch/_build/`` (``native.py``).
+``native_available()`` is False only when neither loads.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import struct
-import subprocess
-import tempfile
 from typing import List, Optional
 
 import numpy as np
 
+from ..native import NATIVE_DIR, load_native
 from .replay import Experience
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_NATIVE = os.path.join(_HERE, "..", "..", "native")
-TRACKED_LIB = os.path.normpath(os.path.join(_NATIVE, "libreplay_store.so"))
-SOURCE = os.path.normpath(os.path.join(_NATIVE, "replay_store.cpp"))
-BUILT_LIB = os.path.join(_HERE, "..", "_build", "libreplay_store.so")
+TRACKED_LIB = os.path.join(NATIVE_DIR, "libreplay_store.so")
 _lib: Optional[ctypes.CDLL] = None
-
-
-def _build() -> Optional[str]:
-    """``native/replay_store.cpp`` compiled into ``_build/`` (once); None
-    when there is no source or no g++, or the build fails."""
-    if os.path.exists(BUILT_LIB):
-        return BUILT_LIB
-    gxx = shutil.which("g++")
-    if gxx is None or not os.path.exists(SOURCE):
-        return None
-    os.makedirs(os.path.dirname(BUILT_LIB), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(BUILT_LIB))
-    os.close(fd)
-    proc = subprocess.run([gxx, "-O2", "-shared", "-fPIC", "-std=c++17",
-                           "-o", tmp, SOURCE], capture_output=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        return None
-    os.replace(tmp, BUILT_LIB)
-    return BUILT_LIB
-
-
-def _open_lib(path: str) -> Optional[ctypes.CDLL]:
-    try:
-        return ctypes.CDLL(path)
-    except OSError:
-        return None
 
 
 def _load_lib() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    lib = _open_lib(TRACKED_LIB) if os.path.exists(TRACKED_LIB) else None
-    if lib is None:
-        built = _build()
-        lib = _open_lib(built) if built is not None else None
+    lib = load_native("replay_store")
     if lib is None:
         return None
     u8p = ctypes.POINTER(ctypes.c_uint8)

@@ -1042,3 +1042,104 @@ def test_macarons_trainer_on_card_matches_cpu():
             assert len(g[k]) == len(c[k])
             np.testing.assert_allclose(g[k], c[k], rtol=1e-3, atol=1e-6)
     assert len(runs["cuda", "learned"][0]["depth_loss"]) == 1
+
+
+@pytest.mark.cuda
+def test_depth_pretrainer_on_card_matches_cpu(tmp_path):
+    """``pretrain_depth`` at 64x114 (96 planes, batch 1) for 3 steps on the
+    card and on the CPU, the same seeded weights and one CPU generator's
+    draws: the losses and held-out errors within 1e-3 relative, every
+    parameter within 2 x 3 x lr of the CPU's (Adam's first steps move a
+    parameter by about lr whatever its gradient's size, so a gradient
+    near zero may move the two apart by that much each step), and the
+    running statistics within 1e-2 of their scale (each of the 3 updates
+    averages a batch statistic taken through parameters so moved apart;
+    measured 1.1e-3 on the H100); on the
+    card K2 once a scene and K1 three times a sample built (the held-out
+    batch included)."""
+    _need_card()
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.models.manydepth import ManyDepth, flax_init_
+    from nextbestpath_tpu_torch.train.pretrain_depth import pretrain_depth
+
+    p = default_params(image_height=64, image_width=114, points_per_frame=256,
+                       full_pc_capacity=16384, n_gt_surface_points=1024)
+    sc = [pack_generated_scene(generate_scene("simple", seed=8), params=p)]
+    ev = pack_generated_scene(generate_scene("simple", seed=708), params=p)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        model = flax_init_(ManyDepth(CameraIntrinsics(64, 114)), 0)
+        logs = str(tmp_path / dev)
+        model, best = pretrain_depth(
+            sc, ev, steps=3, batch=1, seed=8, out_dir=logs, log_dir=logs,
+            eval_every=3, image_height=64, image_width=114, params=p,
+            model=model, draws=TorchDraws(8, torch.device(dev), "cpu"),
+            verbose=False, device=dev)
+        with open(os.path.join(logs, "depth_pre_loss.json")) as f:
+            import json
+            runs[dev] = (json.load(f), model.state_dict(),
+                         dict(kernels.LAUNCHES))
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    assert runs["cuda"][2] == dict(zero, ray_hits=2, ray_hits_pinhole=12)
+    (lg, sg, _), (lc, sc_, _) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lg["loss"], lc["loss"], rtol=1e-3)
+    np.testing.assert_allclose([e["err"] for e in lg["eval_err"]],
+                               [e["err"] for e in lc["eval_err"]], rtol=1e-3)
+    for k, v in sc_.items():
+        diff = float((sg[k].cpu() - v).abs().max())
+        if "running" in k:
+            assert diff <= 1e-2 * float(v.abs().max()), k
+        else:
+            assert diff <= 2 * 3 * 1e-4, k
+
+
+@pytest.mark.cuda
+def test_scone_pretrainer_on_card_matches_cpu():
+    """The object and interior sample builders and 3 occupancy and
+    visibility steps on the card and on the CPU with one CPU generator's
+    draws: the samples' decisions equal and their points within 1e-5 of
+    their scale, the losses within 1e-3 relative; K1 once a view and K2
+    (inside test, visibility rays) launched on the card."""
+    _need_card()
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.models.scone import SconeOcc, SconeVis
+    from nextbestpath_tpu_torch.train import pretrain_scone as P
+
+    small = dict(n_partial=256, n_query=128, n_candidates=4, n_views=2)
+    samples, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = torch.device(dev)
+        kernels.reset_launch_counts()
+        samples[dev] = [
+            P.make_pretrain_sample(0, **small, device=d,
+                                   draws=TorchDraws(0, d, "cpu")),
+            P.make_interior_sample(1, **small, scenes=2, device=d,
+                                   draws=TorchDraws(1, d, "cpu"))]
+        launches[dev] = dict(kernels.LAUNCHES)
+    assert launches["cuda"]["ray_hits_pinhole"] == 4
+    assert launches["cuda"]["ray_hits"] >= 5
+    for g, c in zip(samples["cuda"], samples["cpu"]):
+        for f in ("query_x", "query_occ", "candidate_cams", "gt_coverage"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(c, f))
+        for f in ("partial_pc", "view_harmonics"):
+            a, b = getattr(g, f), getattr(c, f)
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=1e-5 * np.abs(b).max())
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        d = torch.device(dev)
+        torch.manual_seed(0)
+        occ, vis = SconeOcc(seq_len=256), SconeVis()
+        kw = dict(n_steps=3, seed=0, samples=samples["cpu"], batch=2,
+                  verbose=False, device=d)
+        losses[dev] = (
+            P.pretrain_scone_occ(model=occ, draws=TorchDraws(0, d, "cpu"),
+                                 **kw)[1],
+            P.pretrain_scone_vis(model=vis, draws=TorchDraws(0, d, "cpu"),
+                                 **kw)[1])
+    for g, c in zip(losses["cuda"], losses["cpu"]):
+        np.testing.assert_allclose(g, c, rtol=1e-3)
