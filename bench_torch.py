@@ -26,7 +26,10 @@ rollouts of ``--poses`` poses at ``seed + 1``. Prints ONE JSON line:
      "device": "<name, power limit>", "coverage_final", "auc", "dtype",
      "stratified", "batched_capture"}
 
-``vs_baseline`` divides by ``bench.py``'s provisional reference rate.
+``vs_baseline`` divides by ``bench.py``'s provisional reference rate. A
+comment line on standard error gives the rates, the regeneration poses of
+each run, the point count and, on the card, the peak device memory from
+the rollout's construction on.
 
 ``--batch N`` (N > 1), as ``bench.py``'s: the procgen scenes ``seed + i``
 (i < N), padded to a common lattice, through the true-batch
@@ -131,6 +134,8 @@ def main(argv=None) -> int:
                           if args.batch > 1 else sum(rollout.regen_poses))
         return rates, outs[0], regens
 
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     if args.batch > 1:
         scenes = pad_assets_to_common([pack_generated_scene(
             generate_scene(args.difficulty, seed=args.seed + i),
@@ -173,9 +178,11 @@ def main(argv=None) -> int:
               f"{o_res.coverage_evolution[-1]:.4f} auc {o_res.auc:.4f}",
               file=sys.stderr)
     print(json.dumps(line))
+    peak = (f", peak memory {torch.cuda.max_memory_allocated(device) / 2 ** 20:.1f}"
+            f" MiB" if device.type == "cuda" else "")
     print(f"# {args.difficulty}/{args.seed} x {args.batch}, {poses} poses a "
           f"run, rates {rates}, regeneration poses a run {regens}, points "
-          f"{res.n_points}", file=sys.stderr)
+          f"{res.n_points}{peak}", file=sys.stderr)
     return 0
 
 

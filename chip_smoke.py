@@ -14,7 +14,10 @@ Phases, each of which raises on failure (exit code != 0):
    the inside test alone, the ``insane`` scene's tables and a frame's rays,
    with the lanes a ray it takes and its time at zero triangles; K3 at
    full, partial and zero counts; the planner kernels nbp_bfs_field and
-   nbp_extract_path at the main path's lattice and a 58x58 maze),
+   nbp_extract_path at the main path's lattice, the procgen ``insane``/8
+   and ``hard``/8 GT lattices, a 58x58 maze and the thin 4096x1 and
+   1x4096 lattices, each with its eccentricity, their skip flags, and on
+   the scene axis with mixed skip flags),
    with its time, its plain version's time, a library call's time where
    one computes the same function, the least time the card could take for
    the same work, and that work's time at one instruction an operation
@@ -209,10 +212,12 @@ no kernels or device JSON.
 
     python3 chip_smoke.py --against DIR
 
-also times K2 of another checkout of this repo (its own
-``nextbestpath_tpu_torch/kernels.py``, built into its own ``_build/``) at
-phase 3's K2 shapes, held to this tree's plain version, in the order DIR,
-this tree, this tree, DIR, and prints one JSON line a run and shape.
+also times K2 and the planner kernels of another checkout of this repo
+(its own ``nextbestpath_tpu_torch/kernels.py``, built into its own
+``_build/``) at phase 3's K2 shapes and its three timed planner lattices
+(17x17, ``insane``/8, the maze), each held to this tree's plain version, in
+the order DIR, this tree, this tree, DIR, and prints one JSON line a run,
+kernel and shape.
 """
 
 from __future__ import annotations
@@ -307,27 +312,60 @@ def serpentine(L: int, H: int, device):
     return torch.from_numpy(blocked).to(device)
 
 
-def plan_kernel_rows(assets, soa, n_tris, max_len, dev):
+def gt_lattice(a, dev):
+    """The GT edge table (4, L, H) of scene ``a``, built on the card (K2),
+    and its start node (2,) int64."""
+    import torch
+    from nextbestpath_tpu_torch.ops.raytrace import tris_to_soa
+    from nextbestpath_tpu_torch.sim.tables import build_scene_tables
+
+    tables = build_scene_tables(tris_to_soa(torch.from_numpy(a.tris).to(dev)),
+                                torch.tensor([a.n_tris], dtype=torch.int32, device=dev),
+                                torch.from_numpy(a.pose_origin).to(dev), a.pose_l, a.pose_h)
+    start = torch.tensor([int(a.start_cam_idx[0]), int(a.start_cam_idx[2])],
+                         dtype=torch.int64, device=dev)
+    return tables.gt_edge_blocked.contiguous(), start
+
+
+def plan_cases(assets, insane, hard, dev):
+    """The planner kernels' lattices at phase 3, each (name, blocked, start):
+    the main path's 17x17 GT edge table from its start pose, the procgen
+    ``insane``/8 (58x58) and ``hard``/8 (40x40) GT tables from theirs, a
+    58x58 serpentine maze from a corner, and the long thin open lattices
+    4096x1 and 1x4096 (the kernel's one-block path) from an end."""
+    import torch
+    zero = torch.zeros(2, dtype=torch.int64, device=dev)
+    thin = torch.zeros((4, 4096, 1), dtype=torch.bool, device=dev)
+    return [("main", *gt_lattice(assets, dev)), ("insane", *gt_lattice(insane, dev)),
+            ("maze", serpentine(58, 58, dev), zero), ("hard", *gt_lattice(hard, dev)),
+            ("4096x1", thin, zero),
+            ("1x4096", thin.reshape(4, 1, 4096).contiguous(), zero)]
+
+
+# The planner shapes that phase 3 times (and ``--against`` times in both
+# trees); the others are held to the plain versions and timed alone.
+PLAN_TIMED = ("main", "insane", "maze")
+
+
+def plan_kernel_rows(cases, max_len, dev):
     """nbp_bfs_field and nbp_extract_path against their plain versions,
-    integer-exact: at the main path's 17x17 lattice (the scene's GT edge
-    table as the blocked edges, from the start pose, to the farthest
-    reachable node) and at a 58x58 serpentine maze (the procgen ``insane``
-    lattice's size) from a corner to the far corner, past max_len. Returns
-    the kernels JSON rows at the main path's case."""
+    integer-exact, at ``cases`` (plan_cases), the path from each case's
+    farthest reachable node (past max_len on the maze, the procgen
+    lattices and the thin ones); the skip flag (all INF; path -1, length 0,
+    unreachable) and a clear flag (the outputs without one). Times both
+    kernels at every case, the plain versions at PLAN_TIMED, and P1 at
+    the case's shape with every edge blocked (its floor: the launch,
+    staging the flags, the masks, no level). Returns the
+    kernels JSON rows at the main path's case and, by case name, (blocked,
+    start, goal, the plain field, the plain path) for ``--against``."""
     import torch
     from nextbestpath_tpu_torch import kernels
     from nextbestpath_tpu_torch.planning.grid_paths import (
         INF, bfs_distance_field_plain, extract_path_plain)
-    from nextbestpath_tpu_torch.sim.tables import build_scene_tables
 
-    tables = build_scene_tables(soa, n_tris,
-                                torch.from_numpy(assets.pose_origin).to(dev),
-                                assets.pose_l, assets.pose_h)
-    start = torch.tensor([int(assets.start_cam_idx[0]), int(assets.start_cam_idx[2])],
-                         dtype=torch.int64, device=dev)
-    cases = [("main", tables.gt_edge_blocked.contiguous(), start),
-             ("maze", serpentine(58, 58, dev), torch.zeros(2, dtype=torch.int64, device=dev))]
-    out = {}
+    out, plain = {}, {}
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
     for name, blocked, st in cases:
         L, H = blocked.shape[1], blocked.shape[2]
         dist_k = kernels.bfs_field(blocked, st)
@@ -340,41 +378,94 @@ def plan_kernel_rows(assets, soa, n_tris, max_len, dev):
         path_p, len_p, reach_p = extract_path_plain(dist_p, blocked, goal, L, H, max_len)
         same = (torch.equal(dist_k, dist_p) and torch.equal(path_k, path_p)
                 and int(meta_k[0]) == int(len_p) and bool(meta_k[1]) == bool(reach_p))
+        skip_d = kernels.bfs_field(blocked, st, yes)
+        skip_p, skip_m = kernels.extract_path(dist_k, blocked, goal, max_len, yes)
+        clear = kernels.extract_path(dist_k, blocked, goal, max_len, no)
+        skips = (bool((skip_d == INF).all()) and bool((skip_p == -1).all())
+                 and skip_m.tolist() == [0, 0]
+                 and torch.equal(kernels.bfs_field(blocked, st, no), dist_k)
+                 and torch.equal(clear[0], path_k) and torch.equal(clear[1], meta_k))
         log(f"planner kernels ({name}): {L}x{H} lattice, {int(reach.sum())} reachable, "
             f"eccentricity {ecc}, path length {int(len_p)} of {ecc} (max_len {max_len}), "
-            f"equal to the plain versions: {same}")
-        if not same:
+            f"equal to the plain versions: {same}; skip flags: {skips}")
+        if not (same and skips):
             raise AssertionError(f"the planner kernels disagree with their plain versions ({name})")
+        plain[name] = (blocked, st, goal, dist_p, (path_p, len_p, reach_p))
         n = L * H
-        steps = ecc  # the walk from the farthest node back to the start
-        bfs_ops = n * OPS_BFS_NODE
-        walk_ops = steps * OPS_WALK_STEP
+        timed = name in PLAN_TIMED
+        walled = torch.ones_like(blocked)
         out[name] = dict(
+            ecc=ecc,
             shape=f"{L}x{H} lattice, eccentricity {ecc}, path to the farthest node "
                   f"(max_len {max_len})",
             bfs=dict(ms=kernels.device_ms(lambda: kernels.bfs_field(blocked, st), 50),
-                     plain_ms=wall_ms(lambda: bfs_distance_field_plain(blocked, st, L, H), 5),
-                     bound=bound_ms(4 * n + 16 + 4 * n, bfs_ops, PEAK_INT32_OPS)),
+                     skip_ms=kernels.device_ms(lambda: kernels.bfs_field(blocked, st, yes), 50),
+                     floor_ms=kernels.device_ms(lambda: kernels.bfs_field(walled, st), 50),
+                     plain_ms=wall_ms(lambda: bfs_distance_field_plain(blocked, st, L, H), 5)
+                     if timed else None,
+                     bound=bound_ms(4 * n + 16 + 4 * n, n * OPS_BFS_NODE, PEAK_INT32_OPS)),
             walk=dict(ms=kernels.device_ms(
                           lambda: kernels.extract_path(dist_k, blocked, goal, max_len), 50),
+                      skip_ms=kernels.device_ms(
+                          lambda: kernels.extract_path(dist_k, blocked, goal, max_len, yes), 50),
                       plain_ms=wall_ms(lambda: extract_path_plain(
-                          dist_p, blocked, goal, L, H, max_len), 5),
-                      bound=bound_ms(16 + 4 + steps * BYTES_WALK_STEP
-                                     + 8 * max_len + 8, walk_ops,
-                                     PEAK_INT32_OPS)))
+                          dist_p, blocked, goal, L, H, max_len), 5) if timed else None,
+                      bound=bound_ms(16 + 4 + ecc * BYTES_WALK_STEP + 8 * max_len + 8,
+                                     ecc * OPS_WALK_STEP, PEAK_INT32_OPS)))
         for k in ("bfs", "walk"):
             r = out[name][k]
-            log(f"  {k} ({name}): {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
+            plain_s = f"{r['plain_ms']:.3f} ms" if r["plain_ms"] is not None else "not timed"
+            floor_s = f", every edge blocked {r['floor_ms']:.4f} ms" if k == "bfs" else ""
+            log(f"  {k} ({name}, eccentricity {ecc}): {r['ms']:.4f} ms, skipped "
+                f"{r['skip_ms']:.4f} ms{floor_s} (plain {plain_s}, bound "
                 f"{r['bound'][0]:.3g} ms by {r['bound'][1]})")
     main = out["main"]
-    return [dict(name=name, route="cuda", source="nextbestpath_tpu_torch/csrc/plan.cu",
+    rows = [dict(name=name, route="cuda", source="nextbestpath_tpu_torch/csrc/plan.cu",
                  replaces=rep, max_abs_err=0.0, ms=main[k]["ms"],
                  plain_ms=main[k]["plain_ms"], bound_ms=main[k]["bound"][0],
                  bound_by=main[k]["bound"][1], ceiling_ms=None, library_ms=None,
-                 shape=main["shape"], maze_ms=out["maze"][k]["ms"])
+                 shape=main["shape"], skip_ms=main[k]["skip_ms"],
+                 **{f"{c}_ms": out[c][k]["ms"] for c in out if c != "main"})
             for name, k, rep in (
                 ("bfs_field", "bfs", "nextbestpath_tpu/planning/grid_paths.py:102 (XLA while_loop)"),
                 ("extract_path", "walk", "nextbestpath_tpu/planning/grid_paths.py:160 (XLA while_loop)"))]
+    return rows, plain
+
+
+def other_kernels(tree):
+    """``nextbestpath_tpu_torch/kernels.py`` of the checkout ``tree``, built
+    into its own ``_build/``."""
+    spec = importlib.util.spec_from_file_location(
+        "_other_kernels", os.path.join(tree, "nextbestpath_tpu_torch", "kernels.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.build()
+    return other
+
+
+def time_plan_against(tree, plain, max_len):
+    """P1 and P2 of the checkout ``tree`` and of this one at PLAN_TIMED,
+    each held to ``plain`` (this tree's plain versions' results by case,
+    from plan_kernel_rows) and timed in the order tree, this, this, tree;
+    one JSON line a run, kernel and case."""
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    other = other_kernels(tree)
+    for label, kern in ((tree, other), (".", kernels), (".", kernels), (tree, other)):
+        for name in PLAN_TIMED:
+            blocked, st, goal, dist_p, (path_p, len_p, reach_p) = plain[name]
+            dist = kern.bfs_field(blocked, st)
+            path, meta = kern.extract_path(dist, blocked, goal, max_len)
+            if not (torch.equal(dist, dist_p) and torch.equal(path, path_p)
+                    and int(meta[0]) == int(len_p) and bool(meta[1]) == bool(reach_p)):
+                raise AssertionError(f"the planner kernels of {label} disagree with the "
+                                     f"plain versions at {name}")
+            for k, run in (("bfs_field", lambda: kern.bfs_field(blocked, st)),
+                           ("extract_path",
+                            lambda: kern.extract_path(dist, blocked, goal, max_len))):
+                print(json.dumps(dict(tree=label, kernel=k, shape=name,
+                                      lattice=list(blocked.shape[1:]),
+                                      ms=kernels.device_ms(run, 50))), flush=True)
 
 
 def compare_hits(name, got, want, n_rays):
@@ -397,18 +488,16 @@ def compare_hits(name, got, want, n_rays):
     return err
 
 
-def k2_cases(assets, eye, dirs, znear, zfar):
+def k2_cases(assets, insane, eye, dirs, znear, zfar):
     """K2's inputs at phase 3: ``tables``, the 7 L H rays of the main path's
     planner tables in the one launch of sim/tables.py::build_scene_tables;
     ``inside``, their first 3 L H, the inside test alone; ``insane``, the
-    tables of the procgen ``insane`` scene (seed 8, 58x58 lattice, 2,784
-    triangles); ``frame``, the rays ``dirs`` (N, 3) of one frame of the main
+    tables of the procgen ``insane`` scene ``insane`` (seed 8, 58x58
+    lattice, 2,784 triangles); ``frame``, the rays ``dirs`` (N, 3) of one frame of the main
     path's move, each with its own copy of ``eye`` (3,) as its origin, in
     (znear, zfar). Dicts of origins, dirs, soa, the triangle count as an int
     (nt) and as a device tensor (n_tris), t_min and t_max."""
     import torch
-    from nextbestpath_tpu_torch.assets import generate_scene, pack_generated_scene
-    from nextbestpath_tpu_torch.eval.nbp_planning import MAIN_PATH_SEED
     from nextbestpath_tpu_torch.ops.raytrace import tris_to_soa
     from nextbestpath_tpu_torch.planning.grid_paths import lattice_positions
     from nextbestpath_tpu_torch.sim.tables import table_rays
@@ -427,7 +516,6 @@ def k2_cases(assets, eye, dirs, znear, zfar):
     main = tables("tables", assets)
     frame = dict(main, name="frame", origins=eye.expand(dirs.shape[0], 3).contiguous(),
                  dirs=dirs.contiguous(), t_min=znear, t_max=zfar)
-    insane = pack_generated_scene(generate_scene("insane", seed=MAIN_PATH_SEED))
     return [main, tables("inside", assets, 3 * assets.pose_l * assets.pose_h),
             tables("insane", insane), frame]
 
@@ -438,11 +526,7 @@ def time_k2_against(tree, cases, plain):
     in the order tree, this, this, tree."""
     import torch
     from nextbestpath_tpu_torch import kernels
-    spec = importlib.util.spec_from_file_location(
-        "_other_kernels", os.path.join(tree, "nextbestpath_tpu_torch", "kernels.py"))
-    other = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(other)
-    other.build()
+    other = other_kernels(tree)
     for label, kern in ((tree, other), (".", kernels), (".", kernels), (tree, other)):
         for c in cases:
             def run(k=kern, c=c):
@@ -1842,8 +1926,9 @@ def scene_kernel_rows(params, intr, dev):
     bit: K1 over B = 4 and 8 padded ``simple`` scenes (seeds 8-15), a move's
     4 frames each; K3 over B = 4 and 8 scenes' GT clouds with unequal
     sample counts (a 0 among them); P1/P2 over B = 4 17x17 lattices (the
-    scenes' GT edge tables) and B = 4 58x58 mazes. The JSON rows take
-    B = 4, the batch of phase 10; B = 8 is logged beside."""
+    scenes' GT edge tables) and B = 4 58x58 mazes, also with mixed skip
+    flags. The JSON rows take B = 4, the batch of phase 10; B = 8 is logged
+    beside."""
     import torch
     from nextbestpath_tpu_torch import kernels
     from nextbestpath_tpu_torch.eval.nbp_planning import main_path_move
@@ -1966,10 +2051,25 @@ def scene_kernel_rows(params, intr, dev):
               and torch.equal(meta[:, 1] != 0, reach_p)
               and torch.equal(path, torch.stack([x[0] for x in singles]))
               and torch.equal(meta, torch.stack([x[1] for x in singles])))
+        # Mixed skip flags: the skipped scenes' defined results, the others'
+        # as without flags.
+        skip = torch.tensor([False, True, False, True], device=dev)
+        dist_s = kernels.bfs_field_scenes(blocked, start, skip)
+        path_s, meta_s = kernels.extract_path_scenes(dist_s, blocked, goal, max_len, skip)
+        dist_sp = bfs_distance_field_scenes_plain(blocked, start, L, H, skip)
+        path_sp, len_sp, reach_sp = extract_path_scenes_plain(dist_sp, blocked, goal, L, H,
+                                                              max_len, skip)
+        keep = ~skip
+        ok_skip = (torch.equal(dist_s, dist_sp) and torch.equal(path_s, path_sp)
+                   and torch.equal(meta_s[:, 0], len_sp)
+                   and torch.equal(meta_s[:, 1] != 0, reach_sp)
+                   and torch.equal(dist_s[keep], dist[keep])
+                   and torch.equal(path_s[keep], path[keep])
+                   and torch.equal(meta_s[keep], meta[keep]))
         log(f"planner kernels, scene axis ({B} x {name}): eccentricities {ecc}, path lengths "
             f"{len_p.tolist()} (max_len {max_len}), equal to the plain versions and to single "
-            f"launches {ok}")
-        if not ok:
+            f"launches {ok}; skip flags {skip.tolist()} equal to the plain versions {ok_skip}")
+        if not (ok and ok_skip):
             raise AssertionError(f"the planner kernels' scene axis disagrees ({name})")
         n = L * H
         out[("bfs", name)] = dict(
@@ -1977,6 +2077,8 @@ def scene_kernel_rows(params, intr, dev):
             plain_ms=wall_ms(lambda: bfs_distance_field_scenes_plain(blocked, start, L, H), 2),
             single_ms=kernels.device_ms(lambda: [kernels.bfs_field(b, st) for b, st
                                                  in zip(blocked, start)], 50),
+            mixed_skip_ms=kernels.device_ms(lambda: kernels.bfs_field_scenes(blocked, start,
+                                                                             skip), 50),
             bound=bound_ms(B * (4 * n + 16 + 4 * n), B * n * OPS_BFS_NODE, PEAK_INT32_OPS),
             library_ms=None, ceiling=None, shape=f"{B} x {name} lattices")
         out[("walk", name)] = dict(
@@ -1986,12 +2088,16 @@ def scene_kernel_rows(params, intr, dev):
                                                                max_len), 2),
             single_ms=kernels.device_ms(lambda: [kernels.extract_path(d, b, g, max_len) for d, b, g
                                                  in zip(dist, blocked, goal)], 50),
+            mixed_skip_ms=kernels.device_ms(lambda: kernels.extract_path_scenes(
+                dist, blocked, goal, max_len, skip), 50),
             bound=bound_ms(sum(16 + 4 + e * BYTES_WALK_STEP + 8 * max_len + 8 for e in ecc),
                            sum(e * OPS_WALK_STEP for e in ecc), PEAK_INT32_OPS),
             library_ms=None, ceiling=None, shape=f"{B} x {name} lattices")
     for key, r in out.items():
+        mixed = (f", flags {[False, True, False, True]} {r['mixed_skip_ms']:.4f} ms"
+                 if "mixed_skip_ms" in r else "")
         log(f"  {key[0]} scene axis {key[1]}: {r['ms']:.4f} ms (single launches "
-            f"{r['single_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['single_ms']:.4f} ms{mixed}, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound'][0]:.4g} ms by {r['bound'][1]}, library {r['library_ms']}) at "
             f"{r['shape']}")
     rows = []
@@ -2577,7 +2683,8 @@ def phase9_card_vs_cpu(small, s_assets):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", default=None,
-                    help="another checkout whose K2 to time at phase 3's K2 shapes")
+                    help="another checkout whose K2 and planner kernels to time at "
+                         "phase 3's shapes")
     ap.add_argument("--phase", type=int, choices=[14], default=None,
                     help="run phases 1, 2 and this one alone (no result line)")
     args = ap.parse_args()
@@ -2682,7 +2789,8 @@ def main() -> int:
     # origin each (k2_cases), and at n_tris = 0: the launch and the block
     # scheduling alone, the floor under the small shapes.
     k2, k2_plain = {}, {}
-    cases = k2_cases(assets, eyes[-1], dirs4[-1], zn, zf)
+    insane = pack_generated_scene(generate_scene("insane", seed=MAIN_PATH_SEED))
+    cases = k2_cases(assets, insane, eyes[-1], dirs4[-1], zn, zf)
     for case in cases:
         o, d, c_soa, c_nt = case["origins"], case["dirs"], case["soa"], case["n_tris"]
         n, lo, hi = o.shape[0], case["t_min"], case["t_max"]
@@ -2762,7 +2870,15 @@ def main() -> int:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, no-FMA ceiling "
             f"{r['ceiling_ms']:.4f} ms, library {r['library_ms']}) at {r['shape']}")
-    rows += plan_kernel_rows(assets, soa, n_tris, int(params.max_path_len), dev)
+    # The planner kernels at the main path's lattice, the harder levels'
+    # (the scene K2 took above, and ``hard``), a maze and the thin shapes.
+    hard = pack_generated_scene(generate_scene("hard", seed=MAIN_PATH_SEED))
+    max_len = int(params.max_path_len)
+    plan_rows, plan_plain = plan_kernel_rows(plan_cases(assets, insane, hard, dev),
+                                             max_len, dev)
+    rows += plan_rows
+    if args.against:
+        time_plan_against(args.against, plan_plain, max_len)
     rows += scene_kernel_rows(params, intr, dev)
     k1_row, k3_row = rows[0], rows[2]
     log(f"  ray_hits_pinhole: {k1_row['ms_per_frame']:.4f} ms a frame in the "

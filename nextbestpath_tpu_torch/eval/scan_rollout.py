@@ -11,6 +11,8 @@ three functions over a state that stays on the device:
   ``max_plan_retries`` planning attempts (the distance field and the path
   walk: ``nbp_bfs_field`` and ``nbp_extract_path``), each predicated on the
   device and masked once one succeeded, as the JAX ``fori_loop``/``cond``;
+  an attempt after the one that succeeded hands the kernels its "done"
+  flag, and they skip their search;
 * ``post``: the next index, anti-revisit on the visited (position,
   rotation) grid, the move's four frames in one K1 launch, and the state
   update.
@@ -611,17 +613,19 @@ class ScanRollout(GraphSteps):
                                              self.L, self.H, layout_size=S)
         return scores, layout_blocked, value_map[0]
 
-    def _plan_attempt(self, scores, layout_blocked, vm0, memo):
+    def _plan_attempt(self, scores, layout_blocked, vm0, memo, skip):
         """One planning attempt against the memo: (memo', path, path_len,
         done), done when a path was found or nothing is reachable; a
         first-segment GT collision is memoised and leaves done False (JAX
-        ``_plan_attempt``)."""
+        ``_plan_attempt``). ``skip`` (0-d bool): an earlier attempt is
+        done, so the planner kernels skip their search and the caller
+        discards this attempt."""
         L, H = self.L, self.H
         blocked = apply_edge_memo(layout_blocked, memo)
-        dist = bfs_distance_field(blocked, self.state.cur[:2], L, H)
+        dist = bfs_distance_field(blocked, self.state.cur[:2], L, H, skip)
         goal, found = select_goal(scores, dist, L, H)
         path_arr, plen, _ = extract_path(dist, blocked, goal, L, H,
-                                         max_len=self.max_len)
+                                         max_len=self.max_len, skip=skip)
         return self._attempt_finish(path_arr, plen, found, vm0, memo)
 
     def _attempt_finish(self, path_arr, plen, found, vm0, memo):
@@ -651,7 +655,8 @@ class ScanRollout(GraphSteps):
 
     def _plan_step(self) -> None:
         """The plan (JAX ``_plan``): the attempts run one after another, each
-        masked once an earlier one is done, as the JAX fori_loop's cond."""
+        masked once an earlier one is done, as the JAX fori_loop's cond;
+        such an attempt's planner kernels skip their search."""
         s = self.state
         with record_function("plan"):
             scores, layout_blocked, vm0 = self._plan_fields()
@@ -661,7 +666,7 @@ class ScanRollout(GraphSteps):
             done = torch.zeros((), dtype=torch.bool, device=self.device)
             for _ in range(self.max_plan_retries):
                 m2, p2, l2, d2 = self._plan_attempt(scores, layout_blocked,
-                                                    vm0, memo)
+                                                    vm0, memo, done)
                 memo = torch.where(done, memo, m2)
                 path = torch.where(done, path, p2)
                 path_len = torch.where(done, path_len, l2)
@@ -877,7 +882,9 @@ class BatchedScanRollout(GraphSteps):
       ``max_plan_retries`` attempts, each one ``nbp_bfs_field`` and one
       ``nbp_extract_path`` launch for the B lattices, every scene masked
       once it is done, as its own single-scene loop; a scene that did not
-      regenerate keeps its memo and path (JAX's per-scene selects);
+      regenerate keeps its memo and path (JAX's per-scene selects), so the
+      kernels skip the search of a scene that is done or does not
+      regenerate;
     * ``post``: each scene's next pose, the B x n_steps move frames in one
       K1 launch, and each scene's appends and state update.
 
@@ -1025,12 +1032,15 @@ class BatchedScanRollout(GraphSteps):
             for _ in range(self.max_plan_retries):
                 blocked = torch.stack([apply_edge_memo(f[1], mm)
                                        for f, mm in zip(fields, memo)])
-                dist = bfs_distance_field_scenes(blocked, start, L, H)
+                # A scene's result is kept only where it regenerates and
+                # no earlier attempt is done.
+                skip = torch.stack(done) | ~self.regen
+                dist = bfs_distance_field_scenes(blocked, start, L, H, skip)
                 goals = [select_goal(f[0], dist[b], L, H)
                          for b, f in enumerate(fields)]
                 path_arr, lens, _ = extract_path_scenes(
                     dist, blocked, torch.stack([g[0] for g in goals]), L, H,
-                    max_len=self.max_len)
+                    max_len=self.max_len, skip=skip)
                 for b, m in enumerate(ms):
                     m2, p2, l2, d2 = m._attempt_finish(
                         path_arr[b], lens[b], goals[b][1], fields[b][2],

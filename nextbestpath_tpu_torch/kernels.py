@@ -57,8 +57,8 @@ _SIGNATURES = {
     "nbp_ray_hits_lanes": [_I, _I],
     "nbp_min_sq_dists": [_P, _I, _I, _P, _I, _P, _P, _P],
     "nbp_min_sq_dists_tiling": [_I, _I, _I, _I, _P],
-    "nbp_bfs_field": [_P, _P, _I, _I, _I, _P, _P],
-    "nbp_extract_path": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "nbp_bfs_field": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "nbp_extract_path": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "nbp_plan_limits": [_P],
 }
 _NO_RESULT = ("nbp_min_sq_dists_tiling", "nbp_plan_limits")
@@ -334,83 +334,107 @@ def _check_lattice(L: int, H: int, max_len: Optional[int] = None) -> None:
                          f"{max_len}")
 
 
-def _bfs_launch(blocked: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
-    """blocked (B, 4, L, H) bool, start (B, 2) int64 -> (B, L, H) int32."""
+def _skip_ptr(skip: Optional[torch.Tensor], n_b: int) -> Optional[int]:
+    """The device pointer of the planner kernels' skip flags (n_b bools,
+    any shape), or None (a null pointer: no scene is skipped)."""
+    if skip is None:
+        return None
+    _check(skip, "skip", torch.bool)
+    if skip.numel() != n_b:
+        raise ValueError(f"skip has {skip.numel()} flags for {n_b} scenes")
+    return skip.data_ptr()
+
+
+def _bfs_launch(blocked: torch.Tensor, start: torch.Tensor,
+                skip: Optional[torch.Tensor]) -> torch.Tensor:
+    """blocked (B, 4, L, H) bool, start (B, 2) int64, skip B bools or None
+    -> (B, L, H) int32."""
     n_b, L, H = blocked.shape[0], blocked.shape[2], blocked.shape[3]
     _check_lattice(L, H)
+    skip_p = _skip_ptr(skip, n_b)
     lib = build()
     dev = blocked.device
     dist = torch.empty((n_b, L, H), dtype=torch.int32, device=dev)
-    err = lib.nbp_bfs_field(blocked.data_ptr(), start.data_ptr(), n_b, L, H,
-                            dist.data_ptr(), _stream(dev))
+    err = lib.nbp_bfs_field(blocked.data_ptr(), start.data_ptr(), skip_p, n_b,
+                            L, H, dist.data_ptr(), _stream(dev))
     _raise_on(err, "nbp_bfs_field")
     return dist
 
 
-def bfs_field(blocked: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+def bfs_field(blocked: torch.Tensor, start: torch.Tensor,
+              skip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """nbp_bfs_field launch: blocked (4, L, H) bool, start (2,) int64 ->
-    (L, H) int32 unit-cost distances (INF = 2^20 unreachable). Raises
-    ValueError for a lattice past the kernel's limit (``plan_limits``)."""
+    (L, H) int32 unit-cost distances (INF = 2^20 unreachable). ``skip``, a
+    bool on the card (one element), set: the field is all INF and no BFS
+    runs. Raises ValueError for a lattice past the kernel's limit
+    (``plan_limits``)."""
     _check(blocked, "blocked", torch.bool, (4, None, None))
     _check(start, "start", torch.int64, (2,))
-    dist = _bfs_launch(blocked[None], start[None])
+    dist = _bfs_launch(blocked[None], start[None], skip)
     LAUNCHES["bfs_field"] += 1
     return dist[0]
 
 
-def bfs_field_scenes(blocked: torch.Tensor, start: torch.Tensor
-                     ) -> torch.Tensor:
-    """nbp_bfs_field over B lattices, one block a scene: blocked
-    (B, 4, L, H) bool, start (B, 2) int64 -> (B, L, H) int32. The limits
-    of ``plan_limits`` hold for each scene."""
+def bfs_field_scenes(blocked: torch.Tensor, start: torch.Tensor,
+                     skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """nbp_bfs_field over B lattices, one warp a scene: blocked
+    (B, 4, L, H) bool, start (B, 2) int64, skip (B,) bool or None ->
+    (B, L, H) int32. The limits of ``plan_limits`` hold for each scene."""
     _check(blocked, "blocked", torch.bool, (None, 4, None, None))
     _check(start, "start", torch.int64, (blocked.shape[0], 2))
-    dist = _bfs_launch(blocked, start)
+    dist = _bfs_launch(blocked, start, skip)
     LAUNCHES["bfs_field_scenes"] += 1
     return dist
 
 
-def _path_launch(dist, blocked, goal, max_len: int):
-    """dist (B, L, H), blocked (B, 4, L, H), goal (B, 2) -> path
-    (B, max_len, 2) int32, meta (B, 2) int32."""
+def _path_launch(dist, blocked, goal, max_len: int,
+                 skip: Optional[torch.Tensor]):
+    """dist (B, L, H), blocked (B, 4, L, H), goal (B, 2), skip B bools or
+    None -> path (B, max_len, 2) int32, meta (B, 2) int32."""
     n_b, L, H = dist.shape
     _check_lattice(L, H, max_len)
+    skip_p = _skip_ptr(skip, n_b)
     lib = build()
     dev = dist.device
     path = torch.empty((n_b, max_len, 2), dtype=torch.int32, device=dev)
     meta = torch.empty((n_b, 2), dtype=torch.int32, device=dev)
     err = lib.nbp_extract_path(dist.data_ptr(), blocked.data_ptr(),
-                               goal.data_ptr(), n_b, L, H, int(max_len),
-                               path.data_ptr(), meta.data_ptr(), _stream(dev))
+                               goal.data_ptr(), skip_p, n_b, L, H,
+                               int(max_len), path.data_ptr(), meta.data_ptr(),
+                               _stream(dev))
     _raise_on(err, "nbp_extract_path")
     return path, meta
 
 
 def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
-                 goal: torch.Tensor, max_len: int):
+                 goal: torch.Tensor, max_len: int,
+                 skip: Optional[torch.Tensor] = None):
     """nbp_extract_path launch: dist (L, H) int32, blocked (4, L, H) bool,
     goal (2,) int64 -> (path (max_len, 2) int32, meta (2,) int32 holding
-    the path length and whether the goal is reachable). Raises ValueError
-    past the kernel's limits (``plan_limits``)."""
+    the path length and whether the goal is reachable). ``skip``, a bool on
+    the card (one element), set: path all -1, meta (0, 0), and no walk.
+    Raises ValueError past the kernel's limits (``plan_limits``)."""
     _check(dist, "dist", torch.int32, (None, None))
     L, H = dist.shape
     _check(blocked, "blocked", torch.bool, (4, L, H))
     _check(goal, "goal", torch.int64, (2,))
-    path, meta = _path_launch(dist[None], blocked[None], goal[None], max_len)
+    path, meta = _path_launch(dist[None], blocked[None], goal[None], max_len,
+                              skip)
     LAUNCHES["extract_path"] += 1
     return path[0], meta[0]
 
 
 def extract_path_scenes(dist: torch.Tensor, blocked: torch.Tensor,
-                        goal: torch.Tensor, max_len: int):
+                        goal: torch.Tensor, max_len: int,
+                        skip: Optional[torch.Tensor] = None):
     """nbp_extract_path over B lattices, one block a scene: dist (B, L, H)
-    int32, blocked (B, 4, L, H) bool, goal (B, 2) int64 -> (path
-    (B, max_len, 2) int32, meta (B, 2) int32)."""
+    int32, blocked (B, 4, L, H) bool, goal (B, 2) int64, skip (B,) bool or
+    None -> (path (B, max_len, 2) int32, meta (B, 2) int32)."""
     _check(dist, "dist", torch.int32, (None, None, None))
     n_b, L, H = dist.shape
     _check(blocked, "blocked", torch.bool, (n_b, 4, L, H))
     _check(goal, "goal", torch.int64, (n_b, 2))
-    out = _path_launch(dist, blocked, goal, max_len)
+    out = _path_launch(dist, blocked, goal, max_len, skip)
     LAUNCHES["extract_path_scenes"] += 1
     return out
 

@@ -11,7 +11,11 @@ device; on the card they are the kernels ``nbp_bfs_field`` and
 ``nbp_extract_path`` (``csrc/plan.cu``), with no host sync, and on the CPU
 their plain versions. ``bfs_distance_field_scenes`` and
 ``extract_path_scenes`` do the same for B lattices at once (one launch
-each, one block a scene).
+each). Each takes an optional ``skip`` flag (one a scene, a bool tensor on
+the inputs' device): where it is set the result is defined at once and no
+search runs, the field all INF and the path all -1, of length 0 and
+unreachable. The scan's planning attempts pass their "done" flags, whose
+results they discard.
 
 Edge memos: 0 unknown (use the layout test), 1 known passable, 2 known
 collision.
@@ -101,14 +105,28 @@ def _start_mask(start_lh: torch.Tensor, L: int, H: int) -> torch.Tensor:
     return (il == start_lh[0]) & (ih == start_lh[1])
 
 
+def _gather_index(i: int, n: int) -> int:
+    """The element a JAX gather reads at index i of an axis of n: a
+    negative index counts from the end, then the index is clamped."""
+    return min(max(i + n if i < 0 else i, 0), n - 1)
+
+
+def _skipped(skip) -> bool:
+    """Whether a skip flag (a bool tensor or None) is set; reads it on the
+    host."""
+    return skip is not None and bool(skip)
+
+
 def bfs_distance_field_plain(blocked: torch.Tensor, start_lh: torch.Tensor,
-                             L: int, H: int) -> torch.Tensor:
+                             L: int, H: int, skip=None) -> torch.Tensor:
     """Plain version of ``nbp_bfs_field``: relaxation sweeps run to the
     fixpoint (at most L*H sweeps: a maze path can wind through most of the
     grid), the change test taken every few sweeps; sweeps past the
     fixpoint change nothing. The test reads the tensors on the host, so on
-    CUDA tensors it syncs every few sweeps."""
+    CUDA tensors it syncs every few sweeps. ``skip`` set: all INF."""
     dev = blocked.device
+    if _skipped(skip):
+        return torch.full((L, H), INF, dtype=torch.int32, device=dev)
     dist = torch.where(_start_mask(start_lh, L, H),
                        torch.zeros((L, H), dtype=torch.int32, device=dev),
                        torch.full((L, H), INF, dtype=torch.int32, device=dev))
@@ -135,34 +153,40 @@ def bfs_distance_field_plain(blocked: torch.Tensor, start_lh: torch.Tensor,
 
 
 def bfs_distance_field(blocked: torch.Tensor, start_lh: torch.Tensor,
-                       L: int, H: int) -> torch.Tensor:
+                       L: int, H: int, skip=None) -> torch.Tensor:
     """(L, H) int32 unit-cost distances from start_lh ((2,) int64 on the
     device; INF unreachable). blocked[d, i, j]: edge (i, j) -> (i, j) +
-    DIRS[d] impassable. The kernel ``nbp_bfs_field`` on CUDA tensors (no
-    sync), its plain version on CPU tensors."""
+    DIRS[d] impassable; ``skip`` (a 0-d bool on the device, or None) set:
+    all INF. The kernel ``nbp_bfs_field`` on CUDA tensors (no sync), its
+    plain version on CPU tensors."""
     start_lh = torch.as_tensor(start_lh, device=blocked.device)
     if blocked.device.type == "cpu":
-        return bfs_distance_field_plain(blocked, start_lh, L, H)
+        return bfs_distance_field_plain(blocked, start_lh, L, H, skip)
     return kernels.bfs_field(blocked.contiguous(),
-                             start_lh.to(torch.int64).contiguous())
+                             start_lh.to(torch.int64).contiguous(), skip)
 
 
 def extract_path_plain(dist: torch.Tensor, blocked: torch.Tensor,
                        goal_lh: torch.Tensor, L: int, H: int,
-                       max_len: int = 96):
+                       max_len: int = 96, skip=None):
     """Plain version of ``nbp_extract_path``: the walk back from the goal
     as a scalar loop on the host (it reads the inputs to the host, so on
-    CUDA tensors it syncs); the outputs on the inputs' device."""
+    CUDA tensors it syncs); the outputs on the inputs' device. ``skip``
+    set: path all -1, length 0, unreachable."""
+    dev = dist.device
+    if _skipped(skip):
+        return (torch.full((max_len, 2), -1, dtype=torch.int32, device=dev),
+                torch.tensor(0, dtype=torch.int32, device=dev),
+                torch.tensor(False, device=dev))
     d_np = dist.cpu().numpy()
     b_np = blocked.cpu().numpy()
-    gl = min(max(int(goal_lh[0]), 0), L - 1)
-    gh = min(max(int(goal_lh[1]), 0), H - 1)
-    goal_dist = int(d_np[gl, gh])
+    goal = (int(goal_lh[0]), int(goal_lh[1]))
+    goal_dist = int(d_np[_gather_index(goal[0], L), _gather_index(goal[1], H)])
     reachable = goal_dist < INF
     path_len = min(goal_dist, max_len)
     limit = goal_dist if reachable else 0
     rev = [[-1, -1] for _ in range(max_len)]
-    node = (gl, gh)
+    node = goal
     d = goal_dist
     for it in range(limit):
         rev[it % max_len] = [node[0], node[1]]
@@ -180,14 +204,14 @@ def extract_path_plain(dist: torch.Tensor, blocked: torch.Tensor,
     gd = goal_dist if reachable else 1
     path = [rev[(gd - 1 - j) % max_len] if j < path_len else [-1, -1]
             for j in range(max_len)]
-    dev = dist.device
     return (torch.tensor(path, dtype=torch.int32, device=dev),
             torch.tensor(path_len, dtype=torch.int32, device=dev),
             torch.tensor(reachable, device=dev))
 
 
 def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
-                 goal_lh: torch.Tensor, L: int, H: int, max_len: int = 96):
+                 goal_lh: torch.Tensor, L: int, H: int, max_len: int = 96,
+                 skip=None):
     """Walk from the goal back to the start along decreasing distances,
     preferring predecessors in DIRS order.
 
@@ -195,60 +219,77 @@ def extract_path(dist: torch.Tensor, blocked: torch.Tensor,
     past the length; path_len 0-d int32; reachable 0-d bool), on the
     inputs' device. When the goal is further than max_len the max_len nodes
     nearest the START are kept (a circular buffer of max_len nodes), so
-    path[0] is always adjacent to the start. The kernel ``nbp_extract_path``
-    on CUDA tensors (no sync), its plain version on CPU tensors."""
+    path[0] is always adjacent to the start. A goal off the lattice is
+    taken as the JAX function takes it: its distance read where a JAX
+    gather reads (a negative index from the end, then clamped), the walk
+    begun at the goal itself, which it leaves only for a predecessor on the
+    lattice. ``skip`` (a 0-d bool on the
+    device, or None) set: path all -1, length 0, unreachable. The kernel
+    ``nbp_extract_path`` on CUDA tensors (no sync), its plain version on CPU
+    tensors."""
     goal_lh = torch.as_tensor(goal_lh, device=dist.device)
     if dist.device.type == "cpu":
-        return extract_path_plain(dist, blocked, goal_lh, L, H, max_len)
+        return extract_path_plain(dist, blocked, goal_lh, L, H, max_len, skip)
     path, meta = kernels.extract_path(dist.contiguous(), blocked.contiguous(),
                                       goal_lh.to(torch.int64).contiguous(),
-                                      max_len)
+                                      max_len, skip)
     return path, meta[0], meta[1] != 0
 
 
+def _scene_flags(skip, n_b: int):
+    """A scene's skip flag each: skip's rows, or None for every scene."""
+    return [None] * n_b if skip is None else list(skip.reshape(n_b))
+
+
 def bfs_distance_field_scenes_plain(blocked: torch.Tensor,
-                                    start_lh: torch.Tensor, L: int, H: int
-                                    ) -> torch.Tensor:
+                                    start_lh: torch.Tensor, L: int, H: int,
+                                    skip=None) -> torch.Tensor:
     """Plain version of ``nbp_bfs_field``'s scene axis: blocked
-    (B, 4, L, H), start_lh (B, 2) -> (B, L, H), each scene's own field."""
-    return torch.stack([bfs_distance_field_plain(b, s, L, H)
-                        for b, s in zip(blocked, start_lh)])
+    (B, 4, L, H), start_lh (B, 2), skip (B,) or None -> (B, L, H), each
+    scene's own field."""
+    return torch.stack([
+        bfs_distance_field_plain(b, s, L, H, k)
+        for b, s, k in zip(blocked, start_lh,
+                           _scene_flags(skip, blocked.shape[0]))])
 
 
 def bfs_distance_field_scenes(blocked: torch.Tensor, start_lh: torch.Tensor,
-                              L: int, H: int) -> torch.Tensor:
+                              L: int, H: int, skip=None) -> torch.Tensor:
     """``bfs_distance_field`` of B lattices: blocked (B, 4, L, H) bool,
-    start_lh (B, 2) -> (B, L, H) int32. One ``nbp_bfs_field`` launch on
-    CUDA tensors, its plain version on CPU tensors."""
+    start_lh (B, 2), skip (B,) bool or None -> (B, L, H) int32. One
+    ``nbp_bfs_field`` launch on CUDA tensors, its plain version on CPU
+    tensors."""
     if blocked.device.type == "cpu":
-        return bfs_distance_field_scenes_plain(blocked, start_lh, L, H)
+        return bfs_distance_field_scenes_plain(blocked, start_lh, L, H, skip)
     return kernels.bfs_field_scenes(blocked.contiguous(),
-                                    start_lh.to(torch.int64).contiguous())
+                                    start_lh.to(torch.int64).contiguous(),
+                                    skip)
 
 
 def extract_path_scenes_plain(dist: torch.Tensor, blocked: torch.Tensor,
                               goal_lh: torch.Tensor, L: int, H: int,
-                              max_len: int = 96):
+                              max_len: int = 96, skip=None):
     """Plain version of ``nbp_extract_path``'s scene axis: each scene's
     own walk, stacked."""
-    outs = [extract_path_plain(d, b, g, L, H, max_len)
-            for d, b, g in zip(dist, blocked, goal_lh)]
+    outs = [extract_path_plain(d, b, g, L, H, max_len, k)
+            for d, b, g, k in zip(dist, blocked, goal_lh,
+                                  _scene_flags(skip, dist.shape[0]))]
     return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
 
 
 def extract_path_scenes(dist: torch.Tensor, blocked: torch.Tensor,
                         goal_lh: torch.Tensor, L: int, H: int,
-                        max_len: int = 96):
+                        max_len: int = 96, skip=None):
     """``extract_path`` of B lattices: dist (B, L, H), blocked (B, 4, L, H),
-    goal_lh (B, 2) -> (path (B, max_len, 2) int32, path_len (B,) int32,
-    reachable (B,) bool). One ``nbp_extract_path`` launch on CUDA tensors,
-    its plain version on CPU tensors."""
+    goal_lh (B, 2), skip (B,) bool or None -> (path (B, max_len, 2) int32,
+    path_len (B,) int32, reachable (B,) bool). One ``nbp_extract_path``
+    launch on CUDA tensors, its plain version on CPU tensors."""
     if dist.device.type == "cpu":
         return extract_path_scenes_plain(dist, blocked, goal_lh, L, H,
-                                         max_len)
+                                         max_len, skip)
     path, meta = kernels.extract_path_scenes(
         dist.contiguous(), blocked.contiguous(),
-        goal_lh.to(torch.int64).contiguous(), max_len)
+        goal_lh.to(torch.int64).contiguous(), max_len, skip)
     return path, meta[:, 0], meta[:, 1] != 0
 
 

@@ -2,6 +2,7 @@
 
     python3 -m nextbestpath_tpu_torch.profile_rollout [--poses 6]
         [--rollout host|scan|cli|train|collect|dp] [--ranks N]
+        [--difficulty simple|normal|hard|insane]
 
 Runs the main path that ``chip_smoke.py`` drives
 (``eval.nbp_planning.main_path_setup``: procgen ``simple`` seed 8, default
@@ -28,6 +29,10 @@ graphs' device time by stage. Prints, a run:
   dispatch;
 * the operations with the most device time, then those with the most
   host time. Needs a CUDA card.
+
+``--difficulty`` (host, scan and cli) takes the procgen scene of that
+level, seed 8, in place of the main path's ``simple`` one: the harder
+levels' lattices are 26x26 (normal), 40x40 (hard) and 58x58 (insane).
 
 ``--rollout collect`` profiles the scan trainer's collection
 (``train.scan_collection.ScanCollection``, what ``chip_smoke.py`` phase 9
@@ -64,10 +69,11 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .assets import generate_scene, pack_generated_scene
 from .eval.macarons_nbv import NBV_STAGES
-from .eval.nbp_planning import (MAIN_PATH_SEED, MAIN_PATH_WARMUP_POSES,
-                                NBPPlanningRollout, main_path_setup,
-                                seeded_nbp)
+from .eval.nbp_planning import (MAIN_PATH_DIFFICULTY, MAIN_PATH_SEED,
+                                MAIN_PATH_WARMUP_POSES, NBPPlanningRollout,
+                                main_path_setup, seeded_nbp)
 from .eval.scan_rollout import ScanRollout
 
 STAGES = tuple(dict.fromkeys((
@@ -123,9 +129,13 @@ def _stage_device_us(kernels, spans) -> float:
                for s, e in spans)
 
 
-def _runs(kind: str):
-    """(label, run(n_poses)) pairs to profile, each warmed up."""
+def _runs(kind: str, difficulty: str = MAIN_PATH_DIFFICULTY):
+    """(label, run(n_poses)) pairs to profile, each warmed up, on the
+    procgen scene of ``difficulty`` (seed MAIN_PATH_SEED)."""
     params, assets, model = main_path_setup()
+    if difficulty != MAIN_PATH_DIFFICULTY:
+        assets = pack_generated_scene(generate_scene(difficulty, seed=MAIN_PATH_SEED),
+                                      params=params)
     dev = torch.device("cuda")
     if kind in ("host", "cli"):
         if kind == "cli":
@@ -324,6 +334,9 @@ def main() -> None:
                     default="host")
     ap.add_argument("--ranks", type=int, default=1,
                     help="--rollout dp: NCCL ranks, one a card")
+    ap.add_argument("--difficulty", default=MAIN_PATH_DIFFICULTY,
+                    choices=("simple", "normal", "hard", "insane"),
+                    help="--rollout host|scan|cli: the procgen level's scene")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
@@ -333,7 +346,7 @@ def main() -> None:
               args=(args.poses,), timeout_s=900.0)
         return
     runs = {"train": _train_runs, "collect": _collect_runs}.get(
-        args.rollout, lambda: _runs(args.rollout))()
+        args.rollout, lambda: _runs(args.rollout, args.difficulty))()
     for label, run in runs:
         _profile(label, run, args.poses)
 

@@ -400,29 +400,67 @@ def test_plan_launchers_refuse_large_lattices(shape):
         kernels.extract_path(dist, blocked, start, 8)
 
 
+def _procgen_lattice(difficulty, seed=8):
+    """The GT edge table (4, L, H) of a procgen scene, built on the card
+    (K2), and its start node."""
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.sim.tables import build_scene_tables
+
+    a = pack_generated_scene(generate_scene(difficulty, seed=seed))
+    soa = R.tris_to_soa(torch.from_numpy(a.tris).cuda())
+    t = build_scene_tables(soa, torch.tensor([a.n_tris], dtype=torch.int32,
+                                             device="cuda"),
+                           torch.from_numpy(a.pose_origin).cuda(), a.pose_l,
+                           a.pose_h)
+    return (t.gt_edge_blocked.cpu().contiguous(),
+            (int(a.start_cam_idx[0]), int(a.start_cam_idx[2])))
+
+
+# The one-warp shapes (bits along h or along l, 1 to 2 rows a lane) and the
+# long thin ones of the block path, then the procgen GT lattices.
+PLAN_SHAPES = [(10, 10), (17, 17), (58, 58), (64, 64), (3, 41), (41, 3),
+               (4096, 1), (1, 4096)]
+PLAN_LATTICES = ([(case, shape) for case in ("open", "maze", "random",
+                                             "walled")
+                  for shape in PLAN_SHAPES]
+                 + [("hard", None), ("insane", None)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["open", "maze", "random", "walled"])
-@pytest.mark.parametrize("shape", [(10, 10), (17, 17), (58, 58), (64, 64),
-                                   (3, 41)])
+@pytest.mark.parametrize("case,shape", PLAN_LATTICES,
+                         ids=[f"{c}-{s[0]}x{s[1]}" if s else c
+                              for c, s in PLAN_LATTICES])
 def test_plan_kernels_equal_plain_versions_on_card(case, shape):
     """nbp_bfs_field and nbp_extract_path against their plain versions:
     the field for two starts, and the path to a near goal, the far corner
-    (past max_len in the maze), an unreachable goal (walled) and the start
-    itself, at max_len 8 and 96. Both are integer-exact."""
+    (past max_len in the maze), the farthest reachable node, the start
+    itself and two goals off the lattice, at max_len 8 and 96; then the
+    scene axis over B = 4 starts with mixed skip flags. Both are
+    integer-exact."""
     _need_card()
     from nextbestpath_tpu_torch.planning import grid_paths as G
 
-    L, H = shape
-    blocked = _lattice(case, L, H, seed=L * H)
+    if shape is None:
+        blocked, first = _procgen_lattice(case)
+        L, H = blocked.shape[1:]
+    else:
+        L, H = shape
+        blocked = _lattice(case, L, H, seed=L * H)
+        first = (0, 0)
+    starts = (first, (L // 2, H // 3))
     kernels.reset_launch_counts()
     runs = 0
-    for start in ((0, 0), (L // 2, H // 3)):
+    for start in starts:
         s = torch.tensor(start, dtype=torch.int64)
         want = G.bfs_distance_field_plain(blocked, s, L, H)
         got = G.bfs_distance_field(blocked.cuda(), s.cuda(), L, H)
         assert torch.equal(got.cpu(), want), (case, shape, start)
         runs += 1
-        for goal in ((min(2, L - 1), min(1, H - 1)), (L - 1, H - 1), start):
+        reach = want < G.INF
+        far = int(torch.argmax(torch.where(reach, want, -1)))
+        for goal in ((min(2, L - 1), min(1, H - 1)), (L - 1, H - 1),
+                     (far // H, far % H), start, (-1, 0), (L, H)):
             g = torch.tensor(goal, dtype=torch.int64)
             for max_len in (8, 96):
                 pw, lw, rw = G.extract_path_plain(want, blocked, g, L, H,
@@ -434,6 +472,25 @@ def test_plan_kernels_equal_plain_versions_on_card(case, shape):
                 runs += 1
     assert kernels.LAUNCHES["bfs_field"] == 2
     assert kernels.LAUNCHES["extract_path"] == runs - 2
+    B = 4
+    bs = blocked.expand(B, 4, L, H).contiguous()
+    st = torch.tensor([first, (L // 2, H // 3), (L - 1, 0), first],
+                      dtype=torch.int64)
+    goal = torch.tensor([(L - 1, H - 1), (0, 0), (L // 3, H - 1),
+                         (L // 2, H // 2)], dtype=torch.int64)
+    for skip in ([False, True, False, True], [True] * B, [False] * B):
+        k = torch.tensor(skip)
+        want_d = G.bfs_distance_field_scenes_plain(bs, st, L, H, k)
+        got_d = G.bfs_distance_field_scenes(bs.cuda(), st.cuda(), L, H,
+                                            k.cuda())
+        assert torch.equal(got_d.cpu(), want_d), (case, shape, skip)
+        want_p = G.extract_path_scenes_plain(want_d, bs, goal, L, H, 96, k)
+        got_p = G.extract_path_scenes(got_d, bs.cuda(), goal.cuda(), L, H,
+                                      96, k.cuda())
+        for gk, wk in zip(got_p, want_p):
+            assert torch.equal(gk.cpu(), wk), (case, shape, skip)
+    assert kernels.LAUNCHES["bfs_field_scenes"] == 3
+    assert kernels.LAUNCHES["extract_path_scenes"] == 3
 
 
 @pytest.mark.cuda
@@ -645,6 +702,48 @@ def test_train_step_turns_tf32_off_on_card():
     for k, want in out["cpu"].items():
         torch.testing.assert_close(out["cuda"][k], want, rtol=1e-4,
                                    atol=1e-10, msg=k)
+
+
+@pytest.mark.cuda
+def test_scan_rollout_captures_insane_on_card():
+    """The scan rollout on the procgen ``insane`` scene (seed 8, a 58x58
+    lattice whose corridors wind) at the small config: captured as CUDA
+    graphs it equals the same step run eagerly on the card bit for bit,
+    with the same launches (max_plan_retries of each planner kernel a
+    regeneration pose, the attempts after a done one skipped on the
+    device)."""
+    _need_card()
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
+    from nextbestpath_tpu_torch.eval.scan_rollout import ScanRollout
+
+    p = default_params(image_height=32, image_width=56, points_per_frame=256,
+                       full_pc_capacity=65536, n_gt_surface_points=2048,
+                       max_path_len=32, pc2img_size=[64, 64],
+                       value_map_size=[16, 16])
+    a = pack_generated_scene(generate_scene("insane", seed=8), params=p)
+    assert (a.pose_l, a.pose_h) == (58, 58)
+    dev = torch.device("cuda")
+    runs = {}
+    for graphs in (True, False):
+        roll = ScanRollout(a, seeded_nbp(), params=p, device=dev,
+                           draws=TorchDraws(8, dev, "cpu"))
+        roll._use_graphs = graphs
+        roll.run(n_poses=2)
+        kernels.reset_launch_counts()
+        res = roll.run(n_poses=8)
+        runs[graphs] = (res, dict(kernels.LAUNCHES), list(roll.regen_poses),
+                        roll.state.pc.points[:res.n_points].cpu())
+    (g, lg, rg, pg), (e, le, re_, pe) = runs[True], runs[False]
+    assert g.coverage_evolution == e.coverage_evolution
+    assert np.array_equal(g.cam_positions, e.cam_positions)
+    assert g.n_points == e.n_points and torch.equal(pg, pe)
+    assert rg == re_ and rg[0]
+    assert lg == le
+    assert lg["bfs_field"] == lg["extract_path"] == 4 * sum(rg)
 
 
 # ---------------------------------------------------------------------------
