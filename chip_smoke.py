@@ -195,7 +195,28 @@ Phases, each of which raises on failure (exit code != 0):
    index) and K2 (an interior sample's sight and candidate rays, the
    lattice's inside test) against their plain versions bit for bit, and
    the point-cloud planner's edge test on the ``insane`` lattice against
-   2M points (its ms and memory; on 5,000 points the CPU's edges).
+   2M points (its ms and memory; on 5,000 points the CPU's edges);
+15. the policy-quality tools (``tools/*_torch.py``), their ``main``s on
+   the card against a seeded full-width NBP that ``save_nbp`` writes into
+   a temporary directory, each with the counts set to 0 just before and
+   read just after: (a) the held-out NBP-vs-random table in bf16 on
+   ``simple`` and ``normal``, 1 scene and 1 seed each, 8 poses; (b) the
+   promotion gate with A against A in both modes (KEEP, equal means),
+   then the batch's scenes against single-scene runs at the batch's
+   seeds (AUCs within 1e-3); (c) the 101-pose protocol's driver at 4
+   poses through its two processes, one level's file missing so that it
+   falls back, each process loading the library this run built; (d) the
+   per-level fine-tune, 2 epochs of 8 poses from the checkpoint, its
+   tables at 40 poses; (e) the
+   MACARONS quality table at ``--tiny``; (f) one scene head to head
+   without a plot; (g) 101 poses of the main path's scan rollout at full
+   width, past the point buffer's capacity: the count must end at
+   capacity, runs of 40 and 70 poses from the same seed must give the
+   same curve and keep their rows as the full buffer's prefix, and the
+   exact coverage of the buffer (every GT point against every stored
+   point) must never fall. The rollout's own metric, the JAX package's
+   fixed-size stride subsample, can fall as the cloud grows with
+   revisited points (JAX's does too); its falls are printed.
 
 Phase 3 also holds the scene-axis launches (K1, K3 and the planner
 kernels over B scenes, one count, lattice, start or goal a scene) against
@@ -205,10 +226,10 @@ bit, at B = 4 and 8.
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
 
-    python3 chip_smoke.py --phase 14
+    python3 chip_smoke.py --phase 14    (or 15)
 
-runs phases 1, 2 and 14 alone, a quick check of the pretrainers; it prints
-no kernels or device JSON.
+runs phases 1, 2 and 14 (the pretrainers) or 15 (the quality tools) alone,
+a quick check; it prints no kernels or device JSON.
 
     python3 chip_smoke.py --against DIR
 
@@ -223,6 +244,7 @@ kernel and shape.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import importlib.util
 import json
@@ -2680,12 +2702,257 @@ def phase9_card_vs_cpu(small, s_assets):
         raise AssertionError("the card's small collection disagrees with the CPU's")
 
 
+def load_tool(name):
+    """A tool of ``tools/``, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        f"tool_{name}", os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def stderr_into(path):
+    """The process's standard error, its children's too, into ``path``
+    inside the block."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def run_tool(label, name, argv, tmp):
+    """A tool's ``main(argv)`` with the launch counts set to 0 just before
+    and read just after; its "# " lines on stderr are logged. Returns
+    (its dict, the launches, the seconds, its stderr)."""
+    from nextbestpath_tpu_torch import kernels
+
+    err_path = os.path.join(tmp, f"{name}.err")
+    tool = load_tool(name)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with stderr_into(err_path):
+        out = tool.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    err = open(err_path).read()
+    for line in err.splitlines():
+        if line.startswith("# "):
+            log(f"  {label} {line}")
+    return out, launches, seconds, err
+
+
+def finite_rows(label, table, keys):
+    for diff, row in table.items():
+        vals = [row[k] for k in keys]
+        if not all(v == v and 0.0 <= v <= 1.0 for v in vals):
+            raise AssertionError(f"{label}: {diff} row out of range: {row}")
+
+
+def tools_phase(dev, smi):
+    """Phase 15 (module docstring). Returns the launches by kernel of its
+    counted paths."""
+    import shutil
+    import tempfile
+
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.config import default_params
+    from nextbestpath_tpu_torch.eval.heldout import held_out_assets
+    from nextbestpath_tpu_torch.eval.nbp_planning import (MAIN_PATH_SEED,
+                                                          main_path_setup,
+                                                          seeded_nbp)
+    from nextbestpath_tpu_torch.eval.quality import load_policy
+    from nextbestpath_tpu_torch.eval.scan_rollout import (BatchedScanRollout,
+                                                          ScanRollout)
+    from nextbestpath_tpu_torch.utils.checkpoint import save_nbp
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    row_keys = ("nbp_auc", "rw_auc", "nbp_final", "rw_final")
+    with tempfile.TemporaryDirectory(prefix="nbp_tools_") as tmp:
+        ckpt = os.path.join(tmp, "nbp_best_val.ckpt")
+        save_nbp(ckpt, seeded_nbp(), epoch=1)
+
+        # (a) The held-out table at full width in bf16, simple and normal.
+        n_a = 8
+        ev, by_path["tools_eval"], t, _ = run_tool(
+            "phase 15(a)", "eval_vs_random_r2_torch",
+            ["--difficulties", "simple,normal", "--scenes-per-diff", "1",
+             "--seeds", "1", "--poses", str(n_a), "--weights", ckpt,
+             "--out", os.path.join(tmp, "ev.json")], tmp)
+        if list(ev["per_difficulty"]) != ["simple", "normal"] or ev["weights_epoch"] != 1:
+            raise AssertionError(f"phase 15(a): unexpected table {ev}")
+        finite_rows("phase 15(a)", ev["per_difficulty"], row_keys)
+        log(f"phase 15(a) eval_vs_random_r2_torch, bf16, simple + normal, 1 scene and 1 "
+            f"seed each, {n_a} poses [{smi}]: {t:.1f} s; {ev['per_difficulty']}; launches "
+            f"{by_path['tools_eval']}")
+
+        # (b) The promotion gate, A against A, in both modes; then the
+        # batch's scenes against single-scene runs at the batch's seeds.
+        n_b = 6
+        gate = {}
+        for mode in ("sequential", "batched"):
+            out, by_path[f"tools_gate_{mode}"], t, _ = run_tool(
+                f"phase 15(b) {mode}", "compare_ckpts_torch",
+                ["--ckpt-a", ckpt, "--ckpt-b", ckpt, "--scenes-per-diff", "1",
+                 "--seeds", "1", "--poses", str(n_b), "--mode", mode,
+                 "--out", os.path.join(tmp, f"gate_{mode}.json")], tmp)
+            gate[mode] = out
+            log(f"phase 15(b) compare_ckpts_torch A vs A, --mode {mode}, 4 held-out scenes "
+                f"on the insane lattice, {n_b} poses [{smi}]: {t:.1f} s; verdict "
+                f"{out['verdict']}, mean AUC {out['mean_auc_a']} vs {out['mean_auc_b']}, "
+                f"{out['per_difficulty']}; launches {by_path[f'tools_gate_{mode}']}")
+            if (out["verdict"] != "KEEP" or out["mean_auc_a"] != out["mean_auc_b"]
+                    or any(r["a"] != r["b"] for r in out["per_difficulty"].values())
+                    or not out["mean_auc_a"] > 0):
+                raise AssertionError(f"phase 15(b): A against A in {mode} mode: {out}")
+        params = default_params()
+        assets = held_out_assets(params, scenes_per_diff=1)
+        model, _ = load_policy(ckpt, "bfloat16", dev)
+        batch = BatchedScanRollout(assets, model, params=params, device=dev).run(
+            n_poses=n_b, seed=1000)
+        singles = [ScanRollout(a, model, params=params, device=dev).run(
+            n_poses=n_b, seed=1000 + i) for i, a in enumerate(assets)]
+        gaps = [abs(b.auc - s.auc) for b, s in zip(batch, singles)]
+        log(f"phase 15(b) the batched mode's scenes against single-scene runs at their seeds "
+            f"(1000 + i; the sequential mode runs every scene from 1000): AUCs "
+            f"{[round(b.auc, 5) for b in batch]} vs {[round(s.auc, 5) for s in singles]}, "
+            f"max gap {max(gaps):.2e}")
+        if max(gaps) > TOL_COVERAGE:
+            raise AssertionError("phase 15(b): the batch's scenes disagree with single runs")
+        del batch, singles, model
+
+        # (c) The reference protocol's driver through its processes, one
+        # level file missing: that level falls back to nbp_best_val.ckpt.
+        shutil.copy(ckpt, os.path.join(tmp, "nbp_simple_best_auc.ckpt"))
+        n_c = 4
+        merged, _, t, err = run_tool(
+            "phase 15(c)", "eval101_all_torch",
+            ["--poses", str(n_c), "--scenes-per-diff", "1", "--seeds", "1",
+             "--difficulties", "simple,normal",
+             "--weights", os.path.join(tmp, "nbp_{level}_best_auc.ckpt"),
+             "--out", os.path.join(tmp, "eval101.json")], tmp)
+        procs = [ln for ln in err.splitlines() if ln.startswith("# kernels: ")]
+        sub = dict.fromkeys(kernels.LAUNCHES, 0)
+        for ln in procs:
+            for k, v in ast.literal_eval(ln.split(" launches ", 1)[1]).items():
+                sub[k] += v
+        by_path["tools_eval101"] = sub
+        log(f"phase 15(c) eval101_all_torch, simple + normal, {n_c} poses, two processes "
+            f"[{smi}]: {t:.1f} s; {merged['per_difficulty']}; launches of its processes {sub}")
+        if (list(merged["per_difficulty"]) != ["simple", "normal"]
+                or "nbp_normal_best_auc.ckpt missing ->" not in err or len(procs) != 2
+                or any("compiled=False" not in ln for ln in procs)):
+            raise AssertionError("phase 15(c): eval101_all_torch's levels, fallback or "
+                                 "library load went wrong")
+        finite_rows("phase 15(c)", merged["per_difficulty"], row_keys)
+
+        # (d) The per-level fine-tune from the checkpoint, then its table.
+        ft, by_path["tools_finetune"], t, _ = run_tool(
+            "phase 15(d)", "finetune_per_level_torch",
+            ["--levels", "simple", "--epochs", "2", "--poses", "8",
+             "--scenes-per-level", "1", "--eval-every", "1",
+             "--eval-scenes-per-level", "1", "--eval-seeds", "1",
+             "--init", ckpt, "--weights-dir", os.path.join(tmp, "ft_w"),
+             "--log-dir", os.path.join(tmp, "ft_log"), "--db-root", os.path.join(tmp, "ft_db"),
+             "--out", os.path.join(tmp, "ft.json")], tmp)
+        log(f"phase 15(d) finetune_per_level_torch, simple, 2 epochs of 8 poses, tables at 40 "
+            f"poses [{smi}]: "
+            f"{t:.1f} s; {ft['per_difficulty']}; launches {by_path['tools_finetune']}")
+        finite_rows("phase 15(d)", ft["per_difficulty"], row_keys)
+
+        # (e) The MACARONS quality table at its tiny settings.
+        mac, by_path["tools_macarons"], t, _ = run_tool(
+            "phase 15(e)", "macarons_e2e_torch",
+            ["--tiny", "--train-scenes", "1", "--train-poses", "4", "--eval-poses", "4",
+             "--eval-scenes-per-diff", "1", "--eval-seeds", "1",
+             "--save", os.path.join(tmp, "mac"), "--out", os.path.join(tmp, "mac.json")], tmp)
+        log(f"phase 15(e) macarons_e2e_torch --tiny, 4 training and 4 evaluation poses "
+            f"[{smi}]: {t:.1f} s; {mac['per_difficulty']}; launches {by_path['tools_macarons']}")
+        finite_rows("phase 15(e)", mac["per_difficulty"],
+                    ("nbv_auc", "rw_auc", "nbv_final", "rw_final"))
+        if not all(os.path.exists(os.path.join(tmp, "mac", f"scone_{w}.ckpt"))
+                   for w in ("occ", "vis")):
+            raise AssertionError("phase 15(e): the trained SCONE weights were not saved")
+
+        # (f) One scene head to head, no plot.
+        nr, by_path["tools_nbp_vs_random"], t, _ = run_tool(
+            "phase 15(f)", "compare_nbp_vs_random_torch",
+            ["--weights", ckpt, "--poses", "8", "--out", os.path.join(tmp, "nr.json")], tmp)
+        log(f"phase 15(f) compare_nbp_vs_random_torch, simple/8, 8 poses, f32 [{smi}]: "
+            f"{t:.1f} s; NBP AUC {nr['nbp']['auc']:.4f}, random {nr['random_walk']['auc']:.4f}; "
+            f"launches {by_path['tools_nbp_vs_random']}")
+        if nr["weights"] != "trained(e1)" or len(nr["nbp"]["coverage_evolution"]) != 8:
+            raise AssertionError(f"phase 15(f): unexpected result {nr}")
+        rises("phase 15(f) NBP", nr["nbp"]["coverage_evolution"])
+        rises("phase 15(f) random walk", nr["random_walk"]["coverage_evolution"])
+        if any(f.endswith(".png") for f in os.listdir(tmp)):
+            raise AssertionError("phase 15(f): a plot was drawn without --plot")
+
+    # (g) The reference's horizon: 101 poses of the main path's scene at
+    # full width, past the point buffer's capacity. The rollout's metric is
+    # the JAX package's stride subsample of a fixed size, which falls as
+    # the cloud grows with revisited points (as JAX's does); the exact
+    # coverage of the buffer, every GT point against every stored point,
+    # must not fall, and a run of the same seed keeps its earlier runs'
+    # rows as their prefix: the rows past capacity are dropped.
+    params, assets, model = main_path_setup()
+    cap = int(params.full_pc_capacity)
+    n_g = 101
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    roll = ScanRollout(assets, model, params=params, device=dev)
+    res = roll.run(n_poses=n_g, seed=MAIN_PATH_SEED)
+    by_path["horizon101"] = dict(kernels.LAUNCHES)
+    cov = res.coverage_evolution
+    n_regen = sum(roll.regen_poses)
+    gt = torch.from_numpy(assets.gt_surface).to(dev).contiguous()
+
+    def buffer_now():
+        c = int(roll.state.pc.count)
+        pts = roll.state.pc.points.contiguous()
+        d2 = kernels.min_sq_dists(gt, pts, torch.tensor([c], dtype=torch.int32, device=dev))
+        return c, pts[:c].clone(), float((torch.sqrt(d2) < 1.0).float().mean())
+
+    full = buffer_now()
+    earlier = {}
+    for n in (40, 70):
+        r = roll.run(n_poses=n, seed=MAIN_PATH_SEED)
+        earlier[n] = buffer_now() + (r.coverage_evolution == cov[:n],)
+    falls = [(i + 1, round(b - a, 5)) for i, (a, b) in enumerate(zip(cov, cov[1:])) if b < a]
+    log(f"phase 15(g) scan rollout simple/{MAIN_PATH_SEED}, {n_g} poses, f32 [{smi}]: "
+        f"{res.wall_time_s / n_g * 1e3:.2f} ms a pose, {n_regen} regeneration poses, points "
+        f"{res.n_points} of {cap}; sampled coverage every 10 poses "
+        f"{[round(c, 4) for c in cov[::10]]}, final {cov[-1]:.4f}, auc {res.auc:.4f}, "
+        f"{len(falls)} poses below the one before (largest {min(f[1] for f in falls) if falls else 0}); "
+        f"exact coverage of the buffer after 40 / 70 / 101 poses "
+        f"{earlier[40][2]:.5f} / {earlier[70][2]:.5f} / {full[2]:.5f} at "
+        f"{earlier[40][0]} / {earlier[70][0]} / {full[0]} points; launches {by_path['horizon101']}")
+    ok = (res.n_points == cap == full[0] and all(0.0 <= c <= 1.0 for c in cov)
+          and cov[-1] > cov[0] and earlier[40][0] < earlier[70][0] <= cap
+          and earlier[40][2] <= earlier[70][2] <= full[2])
+    for n, (c, pts, _, same_curve) in earlier.items():
+        ok = ok and same_curve and torch.equal(pts, full[1][:c])
+    if not ok:
+        raise AssertionError(f"phase 15(g): the buffer must end at {cap} points, keep the "
+                             f"earlier runs' rows and never lose exact coverage")
+    log(f"phase 15 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", default=None,
                     help="another checkout whose K2 and planner kernels to time at "
                          "phase 3's shapes")
-    ap.add_argument("--phase", type=int, choices=[14], default=None,
+    ap.add_argument("--phase", type=int, choices=[14, 15], default=None,
                     help="run phases 1, 2 and this one alone (no result line)")
     args = ap.parse_args()
     # The smoke runs on one card: expose only the first visible one (phase
@@ -2737,6 +3004,9 @@ def main() -> int:
 
     if args.phase == 14:
         pretrain_phase(dev, smi)
+        return 0
+    if args.phase == 15:
+        tools_phase(dev, smi)
         return 0
 
     # 3. Kernels against their plain versions at the main path's shapes.
@@ -3026,6 +3296,9 @@ def main() -> int:
     # 14. The pretrainers: depth at full width, SCONE on object and
     # interior samples, the card against the CPU, the kernels.
     by_path.update(pretrain_phase(dev, smi))
+    # 15. The policy-quality tools' mains against a seeded checkpoint, and
+    # a 101-pose rollout past the point buffer's capacity.
+    by_path.update(tools_phase(dev, smi))
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]

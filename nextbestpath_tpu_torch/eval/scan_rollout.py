@@ -386,15 +386,18 @@ class ScanRollout(GraphSteps):
     JAX class folds its variables). draws: a provider of the role draws
     (default: ``TorchDraws(seed)`` on the device, made anew by each
     ``run``); a provider given here is used as it is by every run.
-    scene: the scene's arrays when the caller made them (padded ones,
-    ``pad_scene_arrays``); the rollout keeps its own copy. device: "cuda"
-    unless the caller asks for the CPU; raises if CUDA is asked for and
-    absent."""
+    make_draws: seed -> a provider, made anew by each ``run`` (the tests
+    inject the JAX key schedule so). scene: the scene's arrays when the
+    caller made them (padded ones, ``pad_scene_arrays``); the rollout keeps
+    its own copy, which ``set_scene`` overwrites with another scene's.
+    device: "cuda" unless the caller asks for the CPU; raises if CUDA is
+    asked for and absent."""
 
     def __init__(self, assets: SceneAssets, model: NBP,
                  params: Optional[Params] = None, max_plan_retries: int = 4,
                  fold_bn: bool = True, draws=None,
                  scene: Optional[SceneArrays] = None,
+                 make_draws: Optional[Callable[[int], object]] = None,
                  device: DeviceLike = "cuda"):
         self.device = dev = resolve_device(device)
         self.params = p = params or default_params()
@@ -403,6 +406,7 @@ class ScanRollout(GraphSteps):
         self._fold_bn = fold_bn
         self.model = (fold_bn_model(model) if fold_bn else model).to(dev).eval()
         self.draws = draws
+        self.make_draws = make_draws
         self._init_graphs(1)
         self.intr = CameraIntrinsics(
             image_height=int(p.image_height), image_width=int(p.image_width),
@@ -448,6 +452,29 @@ class ScanRollout(GraphSteps):
             if self.stratified else None)
 
     # -- helpers -------------------------------------------------------------
+
+    @torch.no_grad()
+    def set_scene(self, assets: SceneAssets,
+                  scene: Optional[SceneArrays] = None) -> None:
+        """Another scene for the next runs: its arrays (``scene``, or cast
+        from ``assets``) copied into the tensors the graphs were captured
+        over, its start pose and elevation. The scene must have this
+        rollout's lattice, triangle buffer and GT size (same-shape scenes,
+        as ``pad_assets_to_common`` makes them, share one capture, as the
+        JAX class's program cache shares one executable)."""
+        if scene is None:
+            scene = scene_arrays_from_assets(
+                assets, n_pieces=int(self.params.n_pieces),
+                device=self.device)
+        got = [tuple(t.shape) for t in scene.tensors()]
+        want = [tuple(t.shape) for t in self.scene.tensors()]
+        if (assets.pose_l, assets.pose_h, assets.n_azim) != (
+                self.L, self.H, self.A) or got != want:
+            raise ValueError(f"set_scene needs this rollout's shapes: "
+                             f"{assets.name} has {got}, the rollout {want}")
+        self.scene.copy_(scene)
+        self.assets = assets
+        self._elev.fill_(float(assets.elevations_deg[2]))
 
     def _capture_kw(self):
         p = self.params
@@ -723,8 +750,12 @@ class ScanRollout(GraphSteps):
         provider."""
         if variables is not None:
             self.load_weights(variables)
-        draws = self.draws if self.draws is not None else TorchDraws(
-            seed, self.device)
+        if self.draws is not None:
+            draws = self.draws
+        elif self.make_draws is not None:
+            draws = self.make_draws(seed)
+        else:
+            draws = TorchDraws(seed, self.device)
         self._ensure_capacity(n_poses)
         if self._use_graphs and not self._graphs:
             self._capture()
@@ -759,8 +790,9 @@ class ScanRollout(GraphSteps):
     def run(self, n_poses: int = 101, seed: int = 8,
             variables: Optional[NBP] = None) -> RolloutResult:
         """n_poses poses from the scene's start; the draws come from
-        ``TorchDraws(seed)`` unless a provider was given; ``variables``
-        (an unfolded NBP) replaces the weights first (``load_weights``).
+        ``TorchDraws(seed)`` unless a provider (or ``make_draws``) was
+        given; ``variables`` (an unfolded NBP) replaces the weights first
+        (``load_weights``).
         The clock runs from the first pose, once the set-up has finished on
         the device, to the read of the coverage curve and the trajectory,
         after a final sync; state set-up and, on a run that needs them, the

@@ -1,6 +1,7 @@
 """The port's device-resident scan rollout (eval/scan_rollout.py) and the
 modules it brought: BN folding, the one-pass plan projections, the
-tensor-in planner, and bench_torch.py.
+tensor-in planner (``bench_torch.py``'s tests are in
+``test_torch_bench_cli.py``).
 
 On the small config of tests/test_scan_vs_host.py (32x56 frames, 64^2
 maps, the full-width NBP with random weights and the obstacle decoder
@@ -11,12 +12,6 @@ same trajectory (cam positions within 1e-4), the same point count and the
 coverage curve within 1e-3; and against the port's host rollout with the
 same draws. Integer and count outputs are compared exactly.
 """
-
-import io
-import json
-import os
-import sys
-from contextlib import redirect_stdout
 
 import jax
 import jax.numpy as jnp
@@ -54,7 +49,6 @@ from test_torch_planning import _random_blocked, _serpentine
 from test_torch_rollout import SMALL, JaxDraws, _flax_model
 from test_torch_unet import _perturb_stats, _to_numpy
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COV_ATOL = 1e-3
 
 
@@ -315,50 +309,6 @@ def test_tensor_bfs_and_path_match_jax(case):
             np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
             assert isinstance(lt, torch.Tensor) and int(lt) == int(lj)
             assert isinstance(rt, torch.Tensor) and bool(rt) == bool(rj)
-
-
-def test_bench_torch_prints_its_line():
-    sys.path.insert(0, REPO)
-    import bench_torch
-
-    out = io.StringIO()
-    with redirect_stdout(out):
-        rc = bench_torch.main(["--device", "cpu", "--quick", "--poses", "2",
-                               "--warmup-poses", "1"])
-    assert rc == 0
-    lines = out.getvalue().strip().splitlines()
-    assert len(lines) == 1
-    line = json.loads(lines[0])
-    assert line["metric"] == "env_steps_per_sec" and line["unit"] == "poses/s"
-    assert line["runs"] == 5 and line["device"] == "cpu"
-    assert line["min"] <= line["value"] <= line["max"]
-    assert line["vs_baseline"] == pytest.approx(line["value"] / 0.5)
-    assert 0.0 <= line["coverage_final"] <= 1.0 and line["auc"] > 0
-    assert (line["dtype"], line["stratified"], line["batched_capture"]) == (
-        "float32", False, False)
-    if not torch.cuda.is_available():
-        assert bench_torch.main(["--quick"]) == 2
-
-
-@pytest.mark.parametrize("flags", [["--dtype", "bfloat16"], ["--stratified"],
-                                   ["--batched-capture"]])
-def test_bench_torch_options(flags):
-    """The flags beside bench.py's reach the rollout and the line: at
-    --quick (64x114 frames, 1024 points a frame) a stratum is 8 pixels and
-    the stratified draw applies."""
-    sys.path.insert(0, REPO)
-    import bench_torch
-
-    out = io.StringIO()
-    with redirect_stdout(out):
-        rc = bench_torch.main(["--device", "cpu", "--quick", "--poses", "2",
-                               "--warmup-poses", "1"] + flags)
-    assert rc == 0
-    line = json.loads(out.getvalue().strip().splitlines()[0])
-    assert line["dtype"] == ("bfloat16" if "bfloat16" in flags else "float32")
-    assert line["stratified"] == ("--stratified" in flags)
-    assert line["batched_capture"] == ("--batched-capture" in flags)
-    assert 0.0 <= line["coverage_final"] <= 1.0 and line["auc"] > 0
 
 
 @pytest.mark.slow
