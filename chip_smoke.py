@@ -218,6 +218,24 @@ Phases, each of which raises on failure (exit code != 0):
    fixed-size stride subsample, can fall as the cloud grows with
    revisited points (JAX's does too); its falls are printed.
 
+16. the research probes (``tools/*_torch.py``), their ``main``s in-process
+   at full width, each with the counts set to 0 just before and read just
+   after (every kernel of its path launched): (a) the oracle NBV against
+   the random walk on one held-out ``simple`` scene, 5 poses; (b) the
+   value decoder's share, a seeded full-width checkpoint in bf16, one
+   held-out scene a level, 10 poses as it is and with ``value_flat``;
+   then the captured ``value_flat`` rollout of the main path equal to its
+   eager run bit for bit; (c) the suffix labels' reliability, a branch
+   at pose 5 with 2 continuations of 5 poses; then that branch through
+   the collection's ``begin`` / ``advance`` / ``snapshot`` / ``restore``
+   / ``force_replan``: both continuations' row 0 at the mid-state's pose
+   and planned, their paths and row-0 labels different (their draws
+   are), and a restore replaying a continuation bit for bit; (d)
+   ManyDepth on one window, 12 frames and 10 steps (96 planes); (e)
+   online depth learning, 6 poses a run; (f) the eval gap on a seeded
+   depth checkpoint that the phase writes, one trial, the plain and
+   textured errors equal (procgen faces are one grey).
+
 Phase 3 also holds the scene-axis launches (K1, K3 and the planner
 kernels over B scenes, one count, lattice, start or goal a scene) against
 their plain versions and against stacked single-scene launches, bit for
@@ -226,10 +244,11 @@ bit, at B = 4 and 8.
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
 
-    python3 chip_smoke.py --phase 14    (or 15)
+    python3 chip_smoke.py --phase 14    (or 15, 16)
 
-runs phases 1, 2 and 14 (the pretrainers) or 15 (the quality tools) alone,
-a quick check; it prints no kernels or device JSON.
+runs phases 1, 2 and 14 (the pretrainers), 15 (the quality tools) or 16
+(the research probes) alone, a quick check; it prints no kernels or
+device JSON.
 
     python3 chip_smoke.py --against DIR
 
@@ -2946,13 +2965,187 @@ def tools_phase(dev, smi):
     log(f"phase 15 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
     return by_path
 
+def expect_kernels(label, launches, names):
+    """Each kernel of ``names`` launched on the path at least once."""
+    missing = [k for k in names if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels {missing} not launched: {launches}")
+
+
+def probes_phase(dev, smi):
+    """Phase 16 (module docstring). Returns the launches by kernel of its
+    counted paths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.nbp_planning import (MAIN_PATH_SEED,
+                                                          main_path_setup,
+                                                          seeded_nbp)
+    from nextbestpath_tpu_torch.eval.scan_rollout import ScanRollout
+    from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics
+    from nextbestpath_tpu_torch.models.manydepth import ManyDepth
+    from nextbestpath_tpu_torch.train.pretrain_depth import save_depth_checkpoint
+    from nextbestpath_tpu_torch.train.scan_collection import ScanCollection
+    from nextbestpath_tpu_torch.utils.checkpoint import save_nbp
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    K1, K2, K3 = "ray_hits_pinhole", "ray_hits", "min_sq_dists"
+    plan = ("bfs_field", "extract_path")
+    with tempfile.TemporaryDirectory(prefix="nbp_probes_") as tmp:
+        ckpt = os.path.join(tmp, "nbp_best_val.ckpt")
+        save_nbp(ckpt, seeded_nbp(), epoch=1)
+
+        # (a) The oracle NBV against the walk: one simple scene, 5 poses.
+        n_a = 5
+        orc, by_path["probe_oracle"], t, _ = run_tool(
+            "phase 16(a)", "probe_nbv_oracle_torch",
+            ["--eval-poses", str(n_a), "--eval-scenes-per-diff", "1",
+             "--eval-seeds", "1", "--out", os.path.join(tmp, "oracle.json")], tmp)
+        finite_rows("phase 16(a)", orc["per_difficulty"],
+                    ("oracle_auc", "rw_auc", "oracle_final", "rw_final"))
+        expect_kernels("phase 16(a)", by_path["probe_oracle"],
+                       (K1, K2, "min_sq_dists_scenes", "ray_hits_pinhole_scenes"))
+        log(f"phase 16(a) probe_nbv_oracle_torch, simple, 1 scene, 1 seed, {n_a} poses "
+            f"[{smi}]: {t:.1f} s; {orc['per_difficulty']}; launches {by_path['probe_oracle']}")
+
+        # (b) The value decoder's share: one scene a level, 10 poses a mode
+        # in bf16; then the captured value_flat rollout against its eager
+        # run on the main path's scene, bit for bit.
+        n_b = 10
+        val, by_path["probe_value"], t, _ = run_tool(
+            "phase 16(b)", "probe_value_contribution_torch",
+            ["--ckpt", ckpt, "--poses", str(n_b), "--scenes-per-diff", "1",
+             "--seeds", "1", "--out", os.path.join(tmp, "value.json")], tmp)
+        if set(val["per_difficulty"]) != {"simple", "normal", "hard", "insane"} or not all(
+                v == v and 0.0 <= v for row in val["per_scene"].values() for v in row.values()):
+            raise AssertionError(f"phase 16(b): unexpected result {val}")
+        expect_kernels("phase 16(b)", by_path["probe_value"], (K1, K2, K3) + plan)
+        log(f"phase 16(b) probe_value_contribution_torch, bf16, 1 scene a level, {n_b} "
+            f"poses a mode [{smi}]: {t:.1f} s; {val['per_difficulty']}; launches "
+            f"{by_path['probe_value']}")
+        params, assets, model = main_path_setup()
+        flat = ScanRollout(assets, model, params=params, value_flat=True, device=dev)
+        got = flat.run(n_poses=n_b, seed=MAIN_PATH_SEED)
+        flat._use_graphs = False
+        want = flat.run(n_poses=n_b, seed=MAIN_PATH_SEED)
+        plain = ScanRollout(assets, model, params=params, device=dev).run(
+            n_poses=n_b, seed=MAIN_PATH_SEED)
+        same = (got.coverage_evolution == want.coverage_evolution
+                and np.array_equal(got.cam_positions, want.cam_positions)
+                and got.n_points == want.n_points)
+        log(f"phase 16(b) value_flat scan rollout simple/{MAIN_PATH_SEED}, {n_b} poses: "
+            f"captured equal to eager {same}; auc {got.auc:.4f} against the trained-map "
+            f"rollout's {plain.auc:.4f}, the same trajectory "
+            f"{np.array_equal(got.cam_positions, plain.cam_positions)}")
+        if not same:
+            raise AssertionError("phase 16(b): the captured value_flat rollout differs "
+                                 "from its eager run")
+
+        # (c) The suffix labels' reliability: a branch at pose 5, two
+        # continuations of 5 poses; then the branch itself, checked.
+        lab, by_path["probe_labels"], t, _ = run_tool(
+            "phase 16(c)", "probe_label_quality_torch",
+            ["--ckpt", ckpt, "--branch-poses", "5", "--continuations", "2",
+             "--cont-poses", "5", "--out", os.path.join(tmp, "labels.json")], tmp)
+        expect_kernels("phase 16(c)", by_path["probe_labels"], (K1, K2, K3) + plan)
+        entry = lab["branches"][0]
+        log(f"phase 16(c) probe_label_quality_torch, bf16, branch at pose 5, 2 "
+            f"continuations of 5 poses [{smi}]: {t:.1f} s; {entry}; launches "
+            f"{by_path['probe_labels']}")
+        if len(entry["labels_per_continuation"]) != 2 or entry["n_pixels_total"] <= 0:
+            raise AssertionError(f"phase 16(c): unexpected report {entry}")
+        # The branch with the collection's own steps: both continuations
+        # start at the mid-state's pose and plan there (row 0), part where
+        # their draws do, and a restore replays a continuation bit for bit.
+        from nextbestpath_tpu_torch.eval.quality import load_policy
+        from nextbestpath_tpu_torch.train.scan_collection import suffix_labels_from_out
+
+        pol, _ = load_policy(ckpt, "bfloat16", dev)
+        col = ScanCollection([assets], pol, params=params, device=dev)
+        draws = col.begin(0, seed=777, n_poses=10)
+        col.advance(5, draws, run_frozen=True)
+        col.force_replan()
+        snap = col.snapshot()
+        mid_pose = col._pose5(col.state.cur).cpu().numpy()
+        outs = []
+        for k in range(2):
+            col.restore(snap)
+            outs.append(col.advance(5, TorchDraws(10_000 + 97 * k, dev)))
+        col.restore(snap)
+        again = col.advance(5, TorchDraws(10_000, dev))
+        vms, rng = int(params.value_map_size[0]), tuple(params.prediction_range)
+        rows0 = [[(i, px.tolist()) for i, px, _ in suffix_labels_from_out(o, vms, rng)
+                  if i == 0] for o in outs]
+        ok = (all(np.array_equal(o.pose5[0], mid_pose) and o.planned[0] for o in outs)
+              and all(np.array_equal(a, b) for a, b in zip(again, outs[0]))
+              and not np.array_equal(outs[0].pose5, outs[1].pose5)
+              and rows0[0] != rows0[1])
+        log(f"phase 16(c) branch at pose 5: row 0 at the mid-state's pose "
+            f"{mid_pose.round(3).tolist()} in both continuations, planned "
+            f"{[bool(o.planned[0]) for o in outs]}; their paths differ "
+            f"{not np.array_equal(outs[0].pose5, outs[1].pose5)}, their row-0 labels "
+            f"{[len(r[0][1]) if r else 0 for r in rows0]} pixels, differ "
+            f"{rows0[0] != rows0[1]}; a restore replays continuation 0 bit for bit "
+            f"{all(np.array_equal(a, b) for a, b in zip(again, outs[0]))}")
+        if not ok:
+            raise AssertionError("phase 16(c): the branch's continuations do not start at "
+                                 "row 0 of the mid-state, part or replay")
+
+        # (d) ManyDepth on one window: 12 frames, 10 steps.
+        conv, by_path["probe_depth_conv"], t, _ = run_tool(
+            "phase 16(d)", "depth_convergence_probe_torch",
+            ["--frames", "12", "--steps", "10", "--eval-every", "5",
+             "--out", os.path.join(tmp, "conv.json")], tmp)
+        finite("phase 16(d) photometric losses", conv["photometric_curve"], 10)
+        finite("phase 16(d) held-out errors", [e for _, e in conv["heldout_abs_err"]], 3)
+        expect_kernels("phase 16(d)", by_path["probe_depth_conv"], (K1, K2))
+        log(f"phase 16(d) depth_convergence_probe_torch, 256x456, 12 frames, 10 steps "
+            f"[{smi}]: {t:.1f} s; {conv['summary']}; launches {by_path['probe_depth_conv']}")
+
+        # (e) Online depth learning's quality: 6 poses a run.
+        dq, by_path["probe_depth_quality"], t, _ = run_tool(
+            "phase 16(e)", "depth_quality_probe_torch",
+            ["--poses", "6", "--out", os.path.join(tmp, "dq.json")], tmp)
+        summ = dq["summary"]
+        finite("phase 16(e) summary", [v for v in summ.values()])
+        if not (0.0 < summ["coverage_perfect_depth"] <= 1.0
+                and 0.0 < summ["coverage_predicted_depth"] <= 1.0):
+            raise AssertionError(f"phase 16(e): unexpected summary {summ}")
+        expect_kernels("phase 16(e)", by_path["probe_depth_quality"], (K1, K2, K3))
+        log(f"phase 16(e) depth_quality_probe_torch, 256x456, 6 poses a run [{smi}]: "
+            f"{t:.1f} s; {summ}; launches {by_path['probe_depth_quality']}")
+
+        # (f) The eval gap on a seeded checkpoint that this phase writes:
+        # the procgen faces are one grey, so both renders score alike.
+        torch.manual_seed(0)
+        depth_ckpt = os.path.join(tmp, "depth.ckpt")
+        save_depth_checkpoint(depth_ckpt, ManyDepth(CameraIntrinsics(
+            image_height=int(params.image_height), image_width=int(params.image_width))),
+            0, 0.0)
+        gap, by_path["probe_depth_gap"], t, _ = run_tool(
+            "phase 16(f)", "probe_depth_eval_gap_torch",
+            ["--ckpt", depth_ckpt, "--trials", "1",
+             "--out", os.path.join(tmp, "gap.json")], tmp)
+        expect_kernels("phase 16(f)", by_path["probe_depth_gap"], (K1, K2))
+        log(f"phase 16(f) probe_depth_eval_gap_torch, 256x456, 1 trial [{smi}]: {t:.1f} s; "
+            f"{gap['trials']}; launches {by_path['probe_depth_gap']}")
+        if not all(math.isfinite(r["plain_err"]) and r["plain_err"] == r["textured_err"]
+                   for r in gap["trials"]):
+            raise AssertionError(f"phase 16(f): plain and textured errors differ: {gap}")
+    log(f"phase 16 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return by_path
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", default=None,
                     help="another checkout whose K2 and planner kernels to time at "
                          "phase 3's shapes")
-    ap.add_argument("--phase", type=int, choices=[14, 15], default=None,
+    ap.add_argument("--phase", type=int, choices=[14, 15, 16], default=None,
                     help="run phases 1, 2 and this one alone (no result line)")
     args = ap.parse_args()
     # The smoke runs on one card: expose only the first visible one (phase
@@ -3007,6 +3200,9 @@ def main() -> int:
         return 0
     if args.phase == 15:
         tools_phase(dev, smi)
+        return 0
+    if args.phase == 16:
+        probes_phase(dev, smi)
         return 0
 
     # 3. Kernels against their plain versions at the main path's shapes.
@@ -3299,6 +3495,10 @@ def main() -> int:
     # 15. The policy-quality tools' mains against a seeded checkpoint, and
     # a 101-pose rollout past the point buffer's capacity.
     by_path.update(tools_phase(dev, smi))
+    # 16. The research probes' mains at full width: the oracle NBV, the
+    # value_flat ablation, a collection branched from a mid-state, and
+    # the three ManyDepth probes.
+    by_path.update(probes_phase(dev, smi))
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]

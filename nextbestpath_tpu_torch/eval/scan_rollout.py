@@ -47,10 +47,20 @@ metric masks the padded GT rows) on a scene axis: one U-Net forward of
 batch B on a pose where any scene regenerates, and one launch of K1, K3 and
 each planner kernel for all scenes (``kernels.*_scenes``).
 ``run_interleaved`` steps several captured ``ScanRollout``s a pose at a
-time, so that one scene's flag read overlaps the others' replays. Not
-ported: ``segment_len`` (a TPU watchdog workaround that gives identical
-results), the ``ablate`` profiling switch (the stage ranges of
-``torch.profiler.record_function`` take its place) and ``mesh`` sharding.
+time, so that one scene's flag read overlaps the others' replays.
+
+``value_flat=True`` (both classes; JAX ``ablate=("value_flat",)``) scores
+the candidates and picks the orientations with a uniform value map (ones)
+in place of the U-Net's, after the U-Net and the layout fusion: the plan
+then rests on the obstacle decoder and the planner alone, and a rollout
+against one with the trained map measures the value decoder's share of
+rollout quality. It is fixed at construction, so the captured graphs hold
+it. Not ported: ``segment_len`` (a TPU watchdog workaround that gives
+identical results), the other ``ablate`` modes (``model_input``, ``rng``,
+``coverage``, ``observe``, ``logic``, ``moves``, ``plan``: each skips a
+stage to time the rest, which the stage ranges of
+``torch.profiler.record_function`` measure here without changing the
+rollout) and ``mesh`` sharding.
 """
 
 from __future__ import annotations
@@ -391,18 +401,21 @@ class ScanRollout(GraphSteps):
     caller made them (padded ones, ``pad_scene_arrays``); the rollout keeps
     its own copy, which ``set_scene`` overwrites with another scene's.
     device: "cuda" unless the caller asks for the CPU; raises if CUDA is
-    asked for and absent."""
+    asked for and absent. value_flat: plan with a uniform value map (the
+    module docstring)."""
 
     def __init__(self, assets: SceneAssets, model: NBP,
                  params: Optional[Params] = None, max_plan_retries: int = 4,
                  fold_bn: bool = True, draws=None,
                  scene: Optional[SceneArrays] = None,
                  make_draws: Optional[Callable[[int], object]] = None,
+                 value_flat: bool = False,
                  device: DeviceLike = "cuda"):
         self.device = dev = resolve_device(device)
         self.params = p = params or default_params()
         self.assets = assets
         self.max_plan_retries = int(max_plan_retries)
+        self.value_flat = bool(value_flat)
         self._fold_bn = fold_bn
         self.model = (fold_bn_model(model) if fold_bn else model).to(dev).eval()
         self.draws = draws
@@ -413,11 +426,12 @@ class ScanRollout(GraphSteps):
             fov_degrees=float(p.fov_degrees), znear=float(p.camera_znear),
             zfar=float(p.zfar))
         if scene is None:
-            self.scene = scene_arrays_from_assets(
-                assets, n_pieces=int(p.n_pieces), device=dev)
-        else:
-            self.scene = SceneArrays(*[t.to(dev).clone()
-                                       for t in scene.tensors()])
+            scene = scene_arrays_from_assets(assets, n_pieces=int(p.n_pieces),
+                                             device=dev)
+        # Its own copy: on the CPU the arrays share the assets' numpy
+        # memory, which ``set_scene`` would otherwise overwrite.
+        self.scene = SceneArrays(*[t.to(dev).clone()
+                                   for t in scene.tensors()])
         self.L, self.H, self.A = assets.pose_l, assets.pose_h, assets.n_azim
         self._elev = torch.full((1,), float(assets.elevations_deg[2]),
                                 dtype=torch.float32, device=dev)
@@ -627,12 +641,15 @@ class ScanRollout(GraphSteps):
 
     def _plan_maps(self, value_map, obstacle_map, traj_img, proj, filt):
         """The U-Net's maps (batch 1) fused with the projections: (scores,
-        layout_blocked, value map (S', S', A))."""
+        layout_blocked, value map (S', S', A)); the value map is ones with
+        ``value_flat``."""
         p, s, sc = self.params, self.state, self.scene
         S = int(p.pc2img_size[0])
         cam = self.pre.cur_pose5
         layout, proj256 = fuse_layout_from_projections(
             obstacle_map[0, :, :, 0], proj, filt, traj_img)
+        if self.value_flat:
+            value_map = torch.ones_like(value_map)
         scores = score_candidates_test(
             sc.positions, cam[:3], value_map[0], proj256, s.banned,
             value_map_size=int(p.value_map_size[0]), layout_size=S)
@@ -929,12 +946,14 @@ class BatchedScanRollout(GraphSteps):
     from batch 1 in the last bit. The per-scene work runs through one
     ``ScanRollout`` a scene (``members``) whose state, scene arrays and
     weights are views of the stacked ones and of the one folded ``model``.
+    value_flat: every scene plans with a uniform value map.
     """
 
     def __init__(self, assets_list: Sequence[SceneAssets], model: NBP,
                  params: Optional[Params] = None, max_plan_retries: int = 4,
                  fold_bn: bool = True,
                  make_draws: Optional[Callable[[int], object]] = None,
+                 value_flat: bool = False,
                  device: DeviceLike = "cuda"):
         if not assets_list:
             raise ValueError("BatchedScanRollout needs at least one scene")
@@ -954,7 +973,8 @@ class BatchedScanRollout(GraphSteps):
         self.scene = stack_scenes(self.scenes)
         self.members = [ScanRollout(a, self.model, params=p,
                                     max_plan_retries=max_plan_retries,
-                                    fold_bn=False, scene=sc, device=dev)
+                                    fold_bn=False, scene=sc,
+                                    value_flat=value_flat, device=dev)
                         for a, sc in zip(self.assets_list, self.scenes)]
         for b, m in enumerate(self.members):
             m.scene = scene_row(self.scene, b)

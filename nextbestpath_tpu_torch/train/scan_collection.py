@@ -25,6 +25,14 @@ poses are left out: their records stay invalid, as the JAX scan's frozen
 poses are. The records stay on the device and are copied to the host once
 a rollout.
 
+A rollout can branch: ``run`` is ``begin`` (the scene, the draws and the
+initial captures) then ``advance`` (n poses, their records counted from
+row 0), and between the two, or between two ``advance`` calls,
+``snapshot`` / ``restore`` copy the state out and back into the tensors
+the graphs read and ``force_replan`` makes the next pose plan anew (the
+JAX label-quality probe's continuations from one mid-state). The records'
+row counter is the collection's own, not the state's.
+
 All scenes are padded to common triangle and GT sizes and share one
 lattice (``pad_assets_to_common``), so one capture serves every scene and
 every epoch: ``run`` copies the scene's arrays and the folded weights into
@@ -102,7 +110,6 @@ class CollectState:
     path_record: torch.Tensor  # int64
     visited_rot: torch.Tensor  # (L, H, A) bool
     done: torch.Tensor         # bool: the rollout ended (coverage, no path)
-    pose_i: torch.Tensor       # int64
 
 
 class CollectOut(NamedTuple):
@@ -217,6 +224,7 @@ class ScanCollection(GraphSteps):
         self.gt_obs = z((self.S, self.S), torch.bool)
         self.found = z((), torch.bool)
         self.flags = z(2, torch.bool)   # (plan now, done before the pose)
+        self.row = z((), torch.int64)   # the record that post writes
         self.state: Optional[CollectState] = None
         self._pose_cap = 0
         self.plan_poses: List[bool] = []
@@ -241,7 +249,7 @@ class ScanCollection(GraphSteps):
             cur=z(3, i64), path=z((self.max_len, 3), i64),
             path_len=z((), i64), path_record=z((), i64),
             visited_rot=z((self.L, self.H, self.A), torch.bool),
-            done=z((), torch.bool), pose_i=z((), i64))
+            done=z((), torch.bool))
         S, C = self.S, self.C
         self.records = dict(
             model_input=z((cap, S, S, C), torch.float16),
@@ -271,14 +279,18 @@ class ScanCollection(GraphSteps):
         flat = (idx3[0] * self.H + idx3[1]) * self.A + idx3[2]
         self.state.visited_rot.view(-1).index_fill_(0, flat.reshape(1), True)
 
-    def _init_state(self, scene_idx: int, draws) -> None:
-        """The initial state in place: empty buffers and records, the
-        scene's start pose, and the initial captures (a full interpolation
-        from the start to itself)."""
+    def _state_tensors(self) -> Tuple[torch.Tensor, ...]:
         s = self.state
-        for t in (s.pc._storage, s.pc.count, s.traj._storage, s.traj.count,
-                  s.path, s.path_len, s.path_record, s.visited_rot, s.done,
-                  s.pose_i, *self.records.values()):
+        return (s.pc._storage, s.pc.count, s.traj._storage, s.traj.count,
+                s.cur, s.path, s.path_len, s.path_record, s.visited_rot,
+                s.done)
+
+    def _init_state(self, scene_idx: int, draws) -> None:
+        """The initial state in place: empty buffers, the scene's start
+        pose, and the initial captures (a full interpolation from the start
+        to itself)."""
+        s = self.state
+        for t in self._state_tensors():
             t.zero_()
         start = self.assets_list[scene_idx].start_cam_idx
         s.cur.copy_(torch.tensor([int(start[0]), int(start[2]),
@@ -387,7 +399,7 @@ class ScanCollection(GraphSteps):
         plan_now = self.flags[0]
         path_record = torch.where(plan_now, 0, s.path_record)
         done = s.done | (self.cov > COVERAGE_STOP) | ~self.found
-        i = s.pose_i.reshape(1)
+        i = self.row.reshape(1)
         rec = self.records
         rec["model_input"].index_copy_(
             0, i, self.model_input.to(torch.float16))
@@ -413,17 +425,21 @@ class ScanCollection(GraphSteps):
         s.cur.copy_(nxt)
         s.path_record.copy_(path_record + 1)
         s.done.copy_(done)
-        s.pose_i.add_(1)
+        self.row.add_(1)
 
     # -- the rollout ---------------------------------------------------------
 
     @torch.no_grad()
-    def run(self, scene_idx: int, variables: Optional[NBP] = None,
-            seed: int = 0, n_poses: int = 100) -> CollectOut:
-        """One rollout of scene ``scene_idx``; returns the stacked records
-        on the host. variables: the policy's weights (an unfolded NBP, e.g.
-        the trainer's model), folded into the captured copy first; None
-        keeps the last ones. Draws from ``make_draws(seed)``."""
+    def begin(self, scene_idx: int, seed: int = 0, n_poses: int = 100,
+              variables: Optional[NBP] = None):
+        """A rollout of scene ``scene_idx`` up to its first pose: the state
+        for ``n_poses`` poses (the longest run of ``advance`` calls that
+        follows: the trajectory buffer must hold them all), the graphs on a
+        first call, and the initial captures. variables: the policy's
+        weights (an unfolded NBP, e.g. the trainer's), folded into the
+        captured copy first; None keeps the last ones. Returns the run's
+        draws, ``make_draws(seed)`` (default ``TorchDraws(seed)``), for
+        ``advance``."""
         if variables is not None:
             self.load_weights(variables)
         draws = (self.make_draws(seed) if self.make_draws is not None
@@ -433,27 +449,76 @@ class ScanCollection(GraphSteps):
         if self._use_graphs and not self._graphs:
             self._capture()
         self._init_state(scene_idx, draws)
+        return draws
+
+    @torch.no_grad()
+    def advance(self, n: int, draws, run_frozen: bool = False) -> CollectOut:
+        """n poses from the current state with the provider ``draws``;
+        returns their records on the host, row 0 the first of them. Once
+        the rollout is done the remaining poses are left out (their records
+        stay invalid, as the JAX scan's frozen poses are); ``run_frozen``
+        runs them as the JAX scan does (the camera stays, its frames are
+        still captured), for a state that goes on after them."""
+        if n > self._pose_cap:
+            raise ValueError(f"advance({n}) past the {self._pose_cap} poses "
+                             f"of begin")
+        for t in (self.row, *self.records.values()):
+            t.zero_()
         self._begin_run()
         plan_poses = []
         t0 = time.perf_counter()
-        for _ in range(n_poses):
+        for _ in range(n):
             self._draw_pose(draws)
             self._step("pre")
             plan_now, done_before = (bool(f) for f in
                                      self._read_flags(self.flags))
-            if done_before:
+            if done_before and not run_frozen:
                 break  # the rest are the JAX scan's frozen, invalid poses
             if plan_now:
                 self._step("plan")
             self._step("post")
             plan_poses.append(plan_now)
         # A copy on the CPU too: the records are static buffers that the
-        # next run overwrites.
-        out = CollectOut(**{k: v[:n_poses].to("cpu", copy=True).numpy()
+        # next call overwrites.
+        out = CollectOut(**{k: v[:n].to("cpu", copy=True).numpy()
                             for k, v in self.records.items()})
         self.wall_time_s = time.perf_counter() - t0
         self.plan_poses = plan_poses
         return out
+
+    @torch.no_grad()
+    def snapshot(self) -> Tuple[torch.Tensor, ...]:
+        """A copy of the rollout's state, for ``restore`` within the same
+        scene's rollout."""
+        return tuple(t.clone() for t in self._state_tensors())
+
+    @torch.no_grad()
+    def restore(self, snap: Tuple[torch.Tensor, ...]) -> None:
+        """The state of ``snap`` copied back into the tensors the graphs
+        read (the trajectory buffer whole: the model input's trajectory
+        channel reads it)."""
+        for t, v in zip(self._state_tensors(), snap):
+            t.copy_(v)
+
+    @torch.no_grad()
+    def force_replan(self) -> None:
+        """The next pose plans anew from the current state: the path is
+        cleared and the rollout is no longer done (the JAX probe's
+        ``path_len = path_record = 0, done = False``)."""
+        s = self.state
+        for t in (s.path_len, s.path_record, s.done):
+            t.zero_()
+
+    @torch.no_grad()
+    def run(self, scene_idx: int, variables: Optional[NBP] = None,
+            seed: int = 0, n_poses: int = 100) -> CollectOut:
+        """One rollout of scene ``scene_idx`` (``begin`` then ``advance``);
+        returns the stacked records on the host. variables: the policy's
+        weights (an unfolded NBP, e.g. the trainer's model), folded into the
+        captured copy first; None keeps the last ones. Draws from
+        ``make_draws(seed)``."""
+        draws = self.begin(scene_idx, seed, n_poses, variables)
+        return self.advance(n_poses, draws)
 
 
 def suffix_labels_from_out(out: CollectOut, value_map_size: int,

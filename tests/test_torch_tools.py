@@ -54,7 +54,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-3
 POSES = 3
 TOOLS = ("eval_vs_random_r2", "eval101_all", "compare_ckpts",
-         "compare_nbp_vs_random", "finetune_per_level", "macarons_e2e")
+         "compare_nbp_vs_random", "finetune_per_level", "macarons_e2e",
+         "probe_nbv_oracle", "probe_value_contribution",
+         "probe_label_quality", "depth_convergence_probe",
+         "depth_quality_probe", "probe_depth_eval_gap", "gen_configs",
+         "plot_training")
 
 
 @pytest.fixture(autouse=True, scope="module")
