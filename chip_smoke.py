@@ -239,7 +239,14 @@ Phases, each of which raises on failure (exit code != 0):
 Phase 3 also holds the scene-axis launches (K1, K3 and the planner
 kernels over B scenes, one count, lattice, start or goal a scene) against
 their plain versions and against stacked single-scene launches, bit for
-bit, at B = 4 and 8.
+bit, at B = 4 and 8 (K3 also at B = 1), K1 at an ``insane``/8 move and at
+the pretrainers' 64x114 and 32x56 frames (no multiple of its 8 x 16 pixel
+tile), and K3's plan as the card makes it against its host model; it
+prints each K1 row's share of pairs tested after the cull
+(``ops/raytrace.py::pinhole_tested_share``). K1's bound is the bytes the
+function needs (``k1_bound``), or its tested pairs' operations where they
+are more; the all-pairs operations the TPU kernel does are
+``all_pairs_ops_ms`` in the kernels JSON.
 
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
@@ -252,12 +259,16 @@ device JSON.
 
     python3 chip_smoke.py --against DIR
 
-also times K2 and the planner kernels of another checkout of this repo
-(its own ``nextbestpath_tpu_torch/kernels.py``, built into its own
-``_build/``) at phase 3's K2 shapes and its three timed planner lattices
-(17x17, ``insane``/8, the maze), each held to this tree's plain version, in
-the order DIR, this tree, this tree, DIR, and prints one JSON line a run,
-kernel and shape.
+also times K1, K1s, K2, K3, K3s and the planner kernels of another
+checkout of this repo (its own ``nextbestpath_tpu_torch/kernels.py``, built
+into its own ``_build/``) at phase 3's shapes (K1 at a move's four frames,
+one frame and an ``insane``/8 move; K1s at B = 4; K3 at the full and the
+partial count; K3s at B = 4 and 8; K2 at its four shapes; the planner
+kernels at 17x17, ``insane``/8 and the maze) and at phase 12(e)'s (K1 on
+the 20 candidate frames, K3 on the 2M-slot buffer, K3s on the 20
+candidates), each held to this tree's plain version, in the order DIR,
+this tree, this tree, DIR, and prints one JSON line a run, kernel and
+shape (``time_against``).
 """
 
 from __future__ import annotations
@@ -266,6 +277,7 @@ import argparse
 import ast
 import contextlib
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -291,6 +303,11 @@ NO_FMA_OPS = 33.5e12
 # differences, three squares, two adds and a min. The divisions of the few
 # pairs that pass (and K2's t_scaled dot before them) are left out.
 OPS_K1, OPS_K2, OPS_K3 = 20, 44, 9
+
+# K1's bytes as the function needs them: a ray's direction read and its
+# t, count and index written (24 B), and each frame's pinhole SoA read once
+# (40 B a triangle).
+BYTES_K1_RAY, BYTES_K1_TRI = 24, 40
 
 # The planner kernels' integer work, as the functions need it rather than
 # as the kernels do it. A distance field needs one relaxation an edge, as a
@@ -397,14 +414,14 @@ def plan_kernel_rows(cases, max_len, dev):
     kernels at every case, the plain versions at PLAN_TIMED, and P1 at
     the case's shape with every edge blocked (its floor: the launch,
     staging the flags, the masks, no level). Returns the
-    kernels JSON rows at the main path's case and, by case name, (blocked,
-    start, goal, the plain field, the plain path) for ``--against``."""
+    kernels JSON rows at the main path's case and the PLAN_TIMED cases of
+    both kernels for ``time_against``."""
     import torch
     from nextbestpath_tpu_torch import kernels
     from nextbestpath_tpu_torch.planning.grid_paths import (
         INF, bfs_distance_field_plain, extract_path_plain)
 
-    out, plain = {}, {}
+    out, against = {}, []
     yes = torch.ones((), dtype=torch.bool, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
     for name, blocked, st in cases:
@@ -431,9 +448,19 @@ def plan_kernel_rows(cases, max_len, dev):
             f"equal to the plain versions: {same}; skip flags: {skips}")
         if not (same and skips):
             raise AssertionError(f"the planner kernels disagree with their plain versions ({name})")
-        plain[name] = (blocked, st, goal, dist_p, (path_p, len_p, reach_p))
         n = L * H
         timed = name in PLAN_TIMED
+        if timed:
+            def path_ok(got, path_p=path_p, len_p=len_p, reach_p=reach_p):
+                return (torch.equal(got[0], path_p) and int(got[1][0]) == int(len_p)
+                        and bool(got[1][1]) == bool(reach_p))
+            at = f"{name}, {L}x{H} lattice"
+            against += [("bfs_field", at, lambda kern, b=blocked, s=st: kern.bfs_field(b, s),
+                         dist_p),
+                        ("extract_path", at,
+                         lambda kern, d=dist_p, b=blocked, g=goal: kern.extract_path(d, b, g,
+                                                                                     max_len),
+                         path_ok)]
         walled = torch.ones_like(blocked)
         out[name] = dict(
             ecc=ecc,
@@ -470,7 +497,7 @@ def plan_kernel_rows(cases, max_len, dev):
             for name, k, rep in (
                 ("bfs_field", "bfs", "nextbestpath_tpu/planning/grid_paths.py:102 (XLA while_loop)"),
                 ("extract_path", "walk", "nextbestpath_tpu/planning/grid_paths.py:160 (XLA while_loop)"))]
-    return rows, plain
+    return rows, against
 
 
 def other_kernels(tree):
@@ -482,31 +509,6 @@ def other_kernels(tree):
     spec.loader.exec_module(other)
     other.build()
     return other
-
-
-def time_plan_against(tree, plain, max_len):
-    """P1 and P2 of the checkout ``tree`` and of this one at PLAN_TIMED,
-    each held to ``plain`` (this tree's plain versions' results by case,
-    from plan_kernel_rows) and timed in the order tree, this, this, tree;
-    one JSON line a run, kernel and case."""
-    import torch
-    from nextbestpath_tpu_torch import kernels
-    other = other_kernels(tree)
-    for label, kern in ((tree, other), (".", kernels), (".", kernels), (tree, other)):
-        for name in PLAN_TIMED:
-            blocked, st, goal, dist_p, (path_p, len_p, reach_p) = plain[name]
-            dist = kern.bfs_field(blocked, st)
-            path, meta = kern.extract_path(dist, blocked, goal, max_len)
-            if not (torch.equal(dist, dist_p) and torch.equal(path, path_p)
-                    and int(meta[0]) == int(len_p) and bool(meta[1]) == bool(reach_p)):
-                raise AssertionError(f"the planner kernels of {label} disagree with the "
-                                     f"plain versions at {name}")
-            for k, run in (("bfs_field", lambda: kern.bfs_field(blocked, st)),
-                           ("extract_path",
-                            lambda: kern.extract_path(dist, blocked, goal, max_len))):
-                print(json.dumps(dict(tree=label, kernel=k, shape=name,
-                                      lattice=list(blocked.shape[1:]),
-                                      ms=kernels.device_ms(run, 50))), flush=True)
 
 
 def compare_hits(name, got, want, n_rays):
@@ -561,23 +563,69 @@ def k2_cases(assets, insane, eye, dirs, znear, zfar):
             tables("insane", insane), frame]
 
 
-def time_k2_against(tree, cases, plain):
-    """K2 of the checkout ``tree`` and of this one at ``cases``, each held to
-    ``plain`` (this tree's plain version's results, by case name) and timed
-    in the order tree, this, this, tree."""
+def k1_bound(n_rays, counts, share):
+    """K1's bound over frames of n_rays rays with triangle counts ``counts``
+    (one a frame), of which a share ``share`` of the pairs is tested: the
+    larger of the bytes the function needs (the rays read, the outputs
+    written, each frame's SoA once) over the memory rate and the tested
+    pairs' operations over the f32 rate, as (ms, "bytes" or "operations"),
+    and the all-pairs operations' time alone (what the TPU kernel does)."""
+    pairs = n_rays * sum(counts)
+    bound = bound_ms(len(counts) * n_rays * BYTES_K1_RAY + sum(counts) * BYTES_K1_TRI,
+                     share * pairs * OPS_K1)
+    return bound, pairs * OPS_K1 / PEAK_F32_FLOPS * 1e3
+
+
+def check_k3_plan(label, counts, n_g, n_s):
+    """K3's plan as the card makes it (kernels.min_sq_dists_device_plan) on
+    ``counts`` (int32 on the card, one a scene) against its host model
+    (kernels.min_sq_dists_plan): the counter at 0, the chunk and the prefix
+    of the items over the scenes equal."""
+    from nextbestpath_tpu_torch import kernels
+    counts = counts.reshape(-1)
+    plan = kernels.min_sq_dists_plan(counts.tolist(), n_g, n_s, kernels.min_sq_dists_blocks())
+    want = [0, plan["chunk"]] + plan["prefix"]
+    dev_plan = kernels.min_sq_dists_device_plan(counts, n_g, n_s).tolist()
+    if dev_plan != want:
+        raise AssertionError(f"{label}: K3's plan on the card {dev_plan[:12]} differs from its "
+                             f"host model {want[:12]}")
+    return plan
+
+
+def k1_call(kern, dirs, ph, nt, zn, zf, width, scenes=False):
+    """K1 (``scenes``: its scene axis) of the kernels module ``kern``, with
+    the frames' width where the launcher takes one (a checkout from before
+    the pixel tiles takes none)."""
+    fn = kern.ray_hits_pinhole_scenes if scenes else kern.ray_hits_pinhole
+    if "width" in inspect.signature(fn).parameters:
+        return fn(dirs, ph, nt, zn, zf, width)
+    return fn(dirs, ph, nt, zn, zf)
+
+
+def time_against(tree, cases):
+    """Kernels of the checkout ``tree`` and of this one at ``cases``, each
+    (kernel, shape, run, want): ``run(kern)`` launches the kernel of the
+    kernels module ``kern``; ``want`` is this tree's plain version's result
+    (compared with torch.equal) or a function that checks a result. Each
+    run is checked and timed in the order tree, this, this, tree; one JSON
+    line a run and case."""
     import torch
     from nextbestpath_tpu_torch import kernels
     other = other_kernels(tree)
     for label, kern in ((tree, other), (".", kernels), (".", kernels), (tree, other)):
-        for c in cases:
-            def run(k=kern, c=c):
-                return k.ray_hits(c["origins"], c["dirs"], c["soa"], c["n_tris"],
-                                  c["t_min"], c["t_max"])
-            if not all(torch.equal(g, w) for g, w in zip(run(), plain[c["name"]])):
-                raise AssertionError(f"K2 of {label} disagrees with the plain "
-                                     f"version at {c['name']}")
-            print(json.dumps(dict(tree=label, shape=c["name"], rays=c["origins"].shape[0],
-                                  tris=c["nt"], ms=kernels.device_ms(run, 50))), flush=True)
+        for name, shape, run, want in cases:
+            got = run(kern)
+            if callable(want):
+                ok = want(got)
+            else:
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            if not ok:
+                raise AssertionError(f"{name} of {label} disagrees with the plain "
+                                     f"version at {shape}")
+            print(json.dumps(dict(tree=label, kernel=name, shape=shape,
+                                  ms=kernels.device_ms(lambda: run(kern), 50))), flush=True)
 
 
 def small_scan_check(label, s_assets, small):
@@ -1143,7 +1191,8 @@ def pretrain_kernel_checks(params, assets, interior, dev, smi):
     dirs = dirs.contiguous()
     compare_hits(f"phase 14(d) K1 ray_hits_pinhole (one {intr.image_height}x"
                  f"{intr.image_width} RGB-D frame, with its index)",
-                 kernels.ray_hits_pinhole(dirs, ph, n_tris, intr.znear, intr.zfar),
+                 kernels.ray_hits_pinhole(dirs, ph, n_tris, intr.znear, intr.zfar,
+                                          intr.image_width),
                  ray_hits_pinhole_plain(dirs, ph, n_tris, intr.znear, intr.zfar),
                  dirs.shape[1])
     i_assets, i_soa = PS._interior_scene(0, dev)
@@ -1314,7 +1363,7 @@ def macarons_kernel_checks(params, assets, dev, smi):
     ph = pinhole_tri_soa(soa, eye)
     dirs = dirs.contiguous()
     compare_hits("phase 13(e) K1 ray_hits_pinhole (one render_rgbd frame, with its index)",
-                 kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf),
+                 kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf, intr.image_width),
                  ray_hits_pinhole_plain(dirs, ph, n_tris, zn, zf), dirs.shape[1])
     # A move's four frames in one launch, then its points in a buffer.
     n_steps = int(params.n_interpolation_steps)
@@ -1324,7 +1373,7 @@ def macarons_kernel_checks(params, assets, dev, smi):
     ph4 = pinhole_tri_soa(soa, eye4)
     dirs4 = dirs4.contiguous()
     compare_hits(f"phase 13(e) K1 ray_hits_pinhole (the move's {n_steps} frames, one launch)",
-                 kernels.ray_hits_pinhole(dirs4, ph4, n_tris, zn, zf),
+                 kernels.ray_hits_pinhole(dirs4, ph4, n_tris, zn, zf, intr.image_width),
                  ray_hits_pinhole_plain(dirs4, ph4, n_tris, zn, zf),
                  dirs4.shape[0] * dirs4.shape[1])
     # The scene tables.
@@ -1975,7 +2024,8 @@ def scene_kernel_rows(params, intr, dev):
     from nextbestpath_tpu_torch.eval.nbp_planning import main_path_move
     from nextbestpath_tpu_torch.geometry.cameras import get_camera_RT
     from nextbestpath_tpu_torch.ops.coverage import min_sq_dists_scenes_plain
-    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tri_soa,
+    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tested_share,
+                                                     pinhole_tri_soa,
                                                      ray_hits_pinhole_scenes_plain,
                                                      tris_to_soa)
     from nextbestpath_tpu_torch.planning.grid_paths import (
@@ -1985,7 +2035,7 @@ def scene_kernel_rows(params, intr, dev):
     zn, zf = float(intr.znear), float(intr.zfar)
     n_steps = int(params.n_interpolation_steps)
     scenes = padded_scenes(params, 8)
-    out = {}
+    out, against = {}, []
     for B in (4, 8):
         a_b = scenes[:B]
         dirs, phs, counts = [], [], []
@@ -2000,29 +2050,37 @@ def scene_kernel_rows(params, intr, dev):
         dirs = torch.cat(dirs).contiguous()
         ph = torch.cat(phs).contiguous()
         nt = torch.tensor(counts, dtype=torch.int32, device=dev)
-        got = kernels.ray_hits_pinhole_scenes(dirs, ph, nt, zn, zf)
+        W = intr.image_width
+        got = kernels.ray_hits_pinhole_scenes(dirs, ph, nt, zn, zf, W)
         want = ray_hits_pinhole_scenes_plain(dirs, ph, nt, zn, zf)
         single = [kernels.ray_hits_pinhole(dirs[k:k + n_steps], ph[k:k + n_steps],
-                                           nt[k], zn, zf)
+                                           nt[k], zn, zf, W)
                   for k in range(0, len(counts), n_steps)]
         single = tuple(torch.cat([x[i] for x in single]) for i in range(3))
         compare_hits(f"K1 ray_hits_pinhole_scenes ({B} scenes x {n_steps} frames, one "
                      f"launch)", got, want, dirs.shape[0] * dirs.shape[1])
         if not all(torch.equal(g, w) for g, w in zip(got, single)):
             raise AssertionError(f"K1's scene axis differs from single launches (B={B})")
-        n = dirs.shape[0] * dirs.shape[1]
-        ops = dirs.shape[1] * sum(counts) * OPS_K1
+        share = pinhole_tested_share(dirs, ph, nt, W)
+        bound, all_pairs = k1_bound(dirs.shape[1], counts, share)
+        ops = share * dirs.shape[1] * sum(counts) * OPS_K1
         out[("k1", B)] = dict(
-            ms=kernels.device_ms(lambda: kernels.ray_hits_pinhole_scenes(dirs, ph, nt, zn, zf), 30),
+            ms=kernels.device_ms(
+                lambda: kernels.ray_hits_pinhole_scenes(dirs, ph, nt, zn, zf, W), 30),
             plain_ms=kernels.device_ms(
                 lambda: ray_hits_pinhole_scenes_plain(dirs, ph, nt, zn, zf), 2),
             single_ms=kernels.device_ms(lambda: [
-                kernels.ray_hits_pinhole(dirs[k:k + n_steps], ph[k:k + n_steps], nt[k], zn, zf)
+                kernels.ray_hits_pinhole(dirs[k:k + n_steps], ph[k:k + n_steps], nt[k], zn, zf,
+                                         W)
                 for k in range(0, len(counts), n_steps)], 20),
-            bound=bound_ms(n * 12 + ph.numel() * 4 + 4 * len(counts) + n * 12, ops),
+            bound=bound, all_pairs=all_pairs, share=share,
             library_ms=None, ceiling=ceiling_ms(ops),
             shape=f"{B} scenes x {n_steps} frames x {dirs.shape[1]} rays x "
                   f"{counts[0]} tris, a count a frame")
+        if B == 4:
+            against.append(("ray_hits_pinhole_scenes", out[("k1", B)]["shape"],
+                            lambda kern, d=dirs, ph=ph, c=nt: k1_call(kern, d, ph, c, zn, zf, W,
+                                                                      scenes=True), want))
 
         gen = torch.Generator(device="cpu").manual_seed(B)
         n_s = 40960
@@ -2041,11 +2099,16 @@ def scene_kernel_rows(params, intr, dev):
         want = min_sq_dists_scenes_plain(g3, s3, c3)
         single = torch.stack([kernels.min_sq_dists(g, s_, c) for g, s_, c in zip(g3, s3, c3)])
         ok = torch.equal(got, want) and torch.equal(got, single)
+        plan = check_k3_plan(f"K3s (B={B})", c3, g3.shape[1], n_s)
         log(f"K3 min_sq_dists_scenes ({B} scenes x {g3.shape[1]} GT x {n_s} samples, counts "
-            f"{c_list}): equal to the plain version and to single launches {ok}; tiling "
-            f"{kernels.min_sq_dists_tiling(g3.shape[1], n_s, dev, n_scenes=B)}")
+            f"{c_list}): equal to the plain version and to single launches {ok}; plan chunk "
+            f"{plan['chunk']}, items {plan['items']} on {plan['blocks']} blocks (the plan "
+            f"kernel's equal)")
         if not ok:
             raise AssertionError(f"K3's scene axis disagrees (B={B})")
+        against.append(("min_sq_dists_scenes", f"{B} scenes, counts {c_list}",
+                         lambda kern, g3=g3, s3=s3, c3=c3: kern.min_sq_dists_scenes(g3, s3, c3),
+                         want))
         ops = g3.shape[1] * sum(c_list) * OPS_K3
         out[("k3", B)] = dict(
             ms=kernels.device_ms(lambda: kernels.min_sq_dists_scenes(g3, s3, c3), 20),
@@ -2058,8 +2121,18 @@ def scene_kernel_rows(params, intr, dev):
                         if B == 4 else None),
             ceiling=ceiling_ms(ops),
             shape=f"{B} scenes x {g3.shape[1]} GT x {n_s} samples, counts {c_list}")
-        del g3, s3, gs, ss
-        torch.cuda.empty_cache()
+        del gs, ss
+    # One scene on the scene axis (B = 1), at a count that is no multiple of
+    # a tile.
+    g1, s1, c1 = g3[:1].contiguous(), s3[1:2].contiguous(), c3[1:2].contiguous()
+    got = kernels.min_sq_dists_scenes(g1, s1, c1)
+    ok = (torch.equal(got, min_sq_dists_scenes_plain(g1, s1, c1))
+          and torch.equal(got[0], kernels.min_sq_dists(g1[0], s1[0], c1)))
+    check_k3_plan("K3s (B=1)", c1, g1.shape[1], s1.shape[1])
+    log(f"K3 min_sq_dists_scenes (1 scene, count {int(c1[0])}): equal to the plain version and "
+        f"to a single launch {ok}")
+    if not ok:
+        raise AssertionError("K3's scene axis disagrees (B=1)")
 
     max_len = int(params.max_path_len)
     blocked17, start17 = [], []
@@ -2137,9 +2210,11 @@ def scene_kernel_rows(params, intr, dev):
     for key, r in out.items():
         mixed = (f", flags {[False, True, False, True]} {r['mixed_skip_ms']:.4f} ms"
                  if "mixed_skip_ms" in r else "")
+        culled = (f", all pairs' operations {r['all_pairs']:.4f} ms, pairs tested "
+                  f"{r['share']:.4f}" if "share" in r else "")
         log(f"  {key[0]} scene axis {key[1]}: {r['ms']:.4f} ms (single launches "
             f"{r['single_ms']:.4f} ms{mixed}, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound'][0]:.4g} ms by {r['bound'][1]}, library {r['library_ms']}) at "
+            f"{r['bound'][0]:.4g} ms by {r['bound'][1]}{culled}, library {r['library_ms']}) at "
             f"{r['shape']}")
     rows = []
     for name, key, src, rep in (
@@ -2155,8 +2230,9 @@ def scene_kernel_rows(params, intr, dev):
         rows.append(dict(name=name, route="cuda", source=f"nextbestpath_tpu_torch/csrc/{src}",
                          replaces=rep, max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"],
                          bound_ms=r["bound"][0], bound_by=r["bound"][1],
-                         ceiling_ms=r["ceiling"], library_ms=r["library_ms"], shape=r["shape"]))
-    return rows
+                         ceiling_ms=r["ceiling"], library_ms=r["library_ms"], shape=r["shape"],
+                         tested_share=r.get("share"), all_pairs_ops_ms=r.get("all_pairs")))
+    return rows, against
 
 
 def multi_scene_phase(params, small, dev, smi):
@@ -2383,7 +2459,7 @@ def nbv_stage_ms(run, n_poses, stage_names=None):
     return out, wall / n_poses * 1e3
 
 
-def nbv_phase(params, assets, dev, smi):
+def nbv_phase(params, assets, dev, smi, against=None):
     """Phase 12 (module docstring). Returns the launches by kernel of its
     three counted paths: {"nbv": ..., "nbv_oracle": ..., "object_nbv": ...}."""
     import torch
@@ -2511,18 +2587,20 @@ def nbv_phase(params, assets, dev, smi):
     log(f"phase 12(d) small object NBV card vs CPU: curves {gc} / {cc}, views {gv} / {cv}")
     if gv != cv or max(abs(a - b) for a, b in zip(gc, cc)) > 0:
         raise AssertionError("phase 12(d): the card's object NBV disagrees with the CPU's")
-    nbv_kernel_checks(params, assets, obj, res.n_points, dev, smi)
+    nbv_kernel_checks(params, assets, obj, res.n_points, dev, smi, against)
     log(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
     return {"nbv": nbv_l, "nbv_oracle": or_l, "object_nbv": obj_l}
 
 
-def nbv_kernel_checks(params, assets, obj, n_points, dev, smi):
+def nbv_kernel_checks(params, assets, obj, n_points, dev, smi, against=None):
     """Phase 12(e): the kernels at the shapes only the NBV paths give them,
     against their plain versions bit for bit, with their times and
     bounds: K1 on the oracle's 20 candidate frames in one launch, K3 on
     the 2M-slot buffer up to the oracle run's last count (its covered
     points' shape), the scene-axis K3 on the 20 candidates' frames
-    against one GT, and K2 on the object NBV's visibility rays."""
+    against one GT, and K2 on the object NBV's visibility rays. With
+    ``against`` (another checkout), the first three are also timed there
+    and here (``time_against``)."""
     import numpy as np
     import torch
     from nextbestpath_tpu_torch import kernels
@@ -2530,7 +2608,8 @@ def nbv_kernel_checks(params, assets, obj, n_points, dev, smi):
     from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics, get_camera_RT
     from nextbestpath_tpu_torch.ops.coverage import (min_sq_dists_plain,
                                                      min_sq_dists_scenes_plain)
-    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tri_soa,
+    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tested_share,
+                                                     pinhole_tri_soa,
                                                      ray_hits_pinhole_plain,
                                                      ray_hits_plain, tris_to_soa)
     from nextbestpath_tpu_torch.planning.grid_paths import DIRS
@@ -2556,18 +2635,20 @@ def nbv_kernel_checks(params, assets, obj, n_points, dev, smi):
     eyes, dirs = frame_rays(R, T, intr)
     ph = pinhole_tri_soa(soa, eyes)
     dirs = dirs.contiguous()
+    W = intr.image_width
+    k1_want = ray_hits_pinhole_plain(dirs, ph, n_tris, zn, zf)
     err = compare_hits(f"phase 12(e) K1 ray_hits_pinhole ({C_MAX} candidate frames, one launch)",
-                       kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf),
-                       ray_hits_pinhole_plain(dirs, ph, n_tris, zn, zf),
+                       kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf, W), k1_want,
                        dirs.shape[0] * dirs.shape[1])
-    n = dirs.shape[0] * dirs.shape[1]
-    ops = n * assets.n_tris * OPS_K1
-    bound = bound_ms(n * 12 + ph.numel() * 4 + n * 12, ops)
-    ms = kernels.device_ms(lambda: kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf), 20)
+    share = pinhole_tested_share(dirs, ph, n_tris, W)
+    bound, all_pairs = k1_bound(dirs.shape[1], [assets.n_tris] * C_MAX, share)
+    ops = share * dirs.shape[0] * dirs.shape[1] * assets.n_tris * OPS_K1
+    ms = kernels.device_ms(lambda: kernels.ray_hits_pinhole(dirs, ph, n_tris, zn, zf, W), 20)
     plain = kernels.device_ms(lambda: ray_hits_pinhole_plain(dirs, ph, n_tris, zn, zf), 1, 0)
     log(f"phase 12(e) K1 {C_MAX} frames x {dirs.shape[1]} rays x {assets.n_tris} tris [{smi}]: "
-        f"{ms:.4f} ms (plain {plain:.2f} ms, bound {bound[0]:.4f} ms by {bound[1]}, "
-        f"ceiling {ceiling_ms(ops):.4f} ms), max_abs_err {err:.1e}")
+        f"{ms:.4f} ms (plain {plain:.2f} ms, bound {bound[0]:.4f} ms by {bound[1]}, the tested "
+        f"pairs' no-FMA ceiling {ceiling_ms(ops):.4f} ms, all pairs' operations "
+        f"{all_pairs:.4f} ms), max_abs_err {err:.1e}, pairs tested {share:.4f}")
 
     # K3 over the buffer's capacity, its loop cut at the count; the
     # candidates' frames (a count each) against one GT on the scene axis.
@@ -2580,13 +2661,15 @@ def nbv_kernel_checks(params, assets, obj, n_points, dev, smi):
     got = kernels.min_sq_dists(gt, s, n_points)
     want = min_sq_dists_plain(gt, s, n_points)
     same = bool(torch.equal(got, want))
+    plan = check_k3_plan("phase 12(e) K3", torch.tensor([n_points], dtype=torch.int32,
+                                                        device=dev), gt.shape[0], cap)
     ms = kernels.device_ms(lambda: kernels.min_sq_dists(gt, s, n_points), 10)
     plain = kernels.device_ms(lambda: min_sq_dists_plain(gt, s, n_points), 1, 0)
     ops = gt.shape[0] * n_points * OPS_K3
     bound = bound_ms((gt.shape[0] + n_points) * 12 + gt.shape[0] * 4, ops)
     log(f"phase 12(e) K3 {gt.shape[0]} GT x {cap} slots, {n_points} valid [{smi}]: bit for bit "
         f"{same}, {ms:.4f} ms (plain {plain:.2f} ms, bound {bound[0]:.4f} ms by {bound[1]}, "
-        f"ceiling {ceiling_ms(ops):.4f} ms)")
+        f"ceiling {ceiling_ms(ops):.4f} ms), plan chunk {plan['chunk']}, {plan['items']} items")
     n_slots = int(params.points_per_frame)
     counts = torch.randint(0, n_slots + 1, (C_MAX,), generator=gen).to(torch.int32)
     counts[:2] = torch.tensor([n_slots, 0], dtype=torch.int32)
@@ -2594,7 +2677,9 @@ def nbv_kernel_checks(params, assets, obj, n_points, dev, smi):
     g = gt.expand(C_MAX, -1, -1).contiguous()
     counts = counts.to(dev)
     got = kernels.min_sq_dists_scenes(g, sc, counts)
-    same_s = bool(torch.equal(got, min_sq_dists_scenes_plain(g, sc, counts)))
+    want_s = min_sq_dists_scenes_plain(g, sc, counts)
+    same_s = bool(torch.equal(got, want_s))
+    check_k3_plan("phase 12(e) K3s", counts, gt.shape[0], n_slots)
     ms_s = kernels.device_ms(lambda: kernels.min_sq_dists_scenes(g, sc, counts), 10)
     plain_s = kernels.device_ms(lambda: min_sq_dists_scenes_plain(g, sc, counts), 1, 0)
     pairs = gt.shape[0] * int(counts.sum())
@@ -2604,6 +2689,14 @@ def nbv_kernel_checks(params, assets, obj, n_points, dev, smi):
         f"{int(counts.min())}-{int(counts.max())} [{smi}]: bit for bit {same_s}, {ms_s:.4f} ms "
         f"(plain {plain_s:.2f} ms, bound {bound[0]:.4f} ms by {bound[1]}, ceiling "
         f"{ceiling_ms(pairs * OPS_K3):.4f} ms)")
+    if against:
+        time_against(against, [
+            ("ray_hits_pinhole", f"{C_MAX} candidate frames",
+             lambda kern: k1_call(kern, dirs, ph, n_tris, zn, zf, W), k1_want),
+            ("min_sq_dists", f"{gt.shape[0]} GT x {cap} slots, {n_points} valid",
+             lambda kern: kern.min_sq_dists(gt, s, n_points), want),
+            ("min_sq_dists_scenes", f"{C_MAX} x {gt.shape[0]} GT x {n_slots} samples",
+             lambda kern: kern.min_sq_dists_scenes(g, sc, counts), want_s)])
 
     # K2 on one view's visibility rays of the object.
     o_soa = tris_to_soa(torch.from_numpy(obj.tris).to(dev))
@@ -3171,7 +3264,8 @@ def main() -> int:
     from nextbestpath_tpu_torch.geometry.cameras import (CameraIntrinsics,
                                                          get_camera_RT)
     from nextbestpath_tpu_torch.ops.coverage import min_sq_dists_plain
-    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tri_soa,
+    from nextbestpath_tpu_torch.ops.raytrace import (frame_rays, pinhole_tested_share,
+                                                     pinhole_tri_soa,
                                                      ray_hits_pinhole_plain,
                                                      ray_hits_plain, tris_to_soa)
 
@@ -3224,20 +3318,52 @@ def main() -> int:
     R, T = get_camera_RT(poses[:, :3], poses[:, 3:])
     eyes, dirs4 = frame_rays(R, T, intr)
     ph4 = pinhole_tri_soa(soa, eyes)
+    dirs4 = dirs4.contiguous()
     dirs1, ph1 = dirs4[-1:].contiguous(), ph4[-1:].contiguous()
-    k1 = {}
-    for b, (d, ph) in ((1, (dirs1, ph1)), (n_steps, (dirs4, ph4))):
-        got = kernels.ray_hits_pinhole(d, ph, n_tris, zn, zf)
-        want = ray_hits_pinhole_plain(d, ph, n_tris, zn, zf)
-        err = compare_hits(f"K1 ray_hits_pinhole ({b} frame{'s' * (b > 1)}, one launch)",
+    W = intr.image_width
+    insane = pack_generated_scene(generate_scene("insane", seed=MAIN_PATH_SEED))
+    i_soa = tris_to_soa(torch.from_numpy(insane.tris).to(dev))
+    i_nt = torch.tensor([insane.n_tris], dtype=torch.int32, device=dev)
+    i_poses = main_path_move(insane, n_steps, dev)
+    i_eyes, i_dirs = frame_rays(*get_camera_RT(i_poses[:, :3], i_poses[:, 3:]), intr)
+    i_dirs, i_ph = i_dirs.contiguous(), pinhole_tri_soa(i_soa, i_eyes)
+    k1, against = {}, []
+    for b, (d, ph, c_nt, tris) in ((1, (dirs1, ph1, n_tris, nt)),
+                                   (n_steps, (dirs4, ph4, n_tris, nt)),
+                                   ("insane", (i_dirs, i_ph, i_nt, insane.n_tris))):
+        label = (f"{b} frame{'s' * (b != 1)}" if b != "insane"
+                 else f"insane/{MAIN_PATH_SEED}, {n_steps} frames")
+        got = kernels.ray_hits_pinhole(d, ph, c_nt, zn, zf, W)
+        want = ray_hits_pinhole_plain(d, ph, c_nt, zn, zf)
+        err = compare_hits(f"K1 ray_hits_pinhole ({label}, one launch, 8x16 tiles)",
                            got, want, d.shape[0] * d.shape[1])
         n = d.shape[0] * d.shape[1]
-        ops = n * nt * OPS_K1
+        share = pinhole_tested_share(d, ph, c_nt, W)
+        bound, all_pairs = k1_bound(d.shape[1], [tris] * d.shape[0], share)
         k1[b] = dict(
-            err=err, n=n, ops=ops,
-            bound=bound_ms(n * 12 + ph.numel() * 4 + n * 12, ops),
-            ms=kernels.device_ms(lambda: kernels.ray_hits_pinhole(d, ph, n_tris, zn, zf), 50),
-            plain_ms=kernels.device_ms(lambda: ray_hits_pinhole_plain(d, ph, n_tris, zn, zf), 3))
+            err=err, n=n, ops=share * n * tris * OPS_K1, tris=tris, bound=bound,
+            all_pairs=all_pairs, share=share,
+            ms=kernels.device_ms(lambda: kernels.ray_hits_pinhole(d, ph, c_nt, zn, zf, W), 50),
+            plain_ms=kernels.device_ms(lambda: ray_hits_pinhole_plain(d, ph, c_nt, zn, zf),
+                                       3 if b != "insane" else 1))
+        against.append((
+            "ray_hits_pinhole", label,
+            lambda kern, d=d, ph=ph, c=c_nt: k1_call(kern, d, ph, c, zn, zf, W), want))
+    for b, r in k1.items():
+        log(f"  ray_hits_pinhole {b}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, the tested pairs' no-FMA ceiling "
+            f"{ceiling_ms(r['ops']):.4f} ms, all pairs' operations {r['all_pairs']:.4f} ms); "
+            f"pairs tested {r['share']:.4f} of {r['tris']} tris")
+    # At frames that are no multiple of the tile: the pretrainers' 64x114
+    # and 32x56.
+    for hh, ww in ((64, 114), (32, 56)):
+        s_intr = CameraIntrinsics(hh, ww, float(params.fov_degrees), zn, zf)
+        s_eyes, s_dirs = frame_rays(R, T, s_intr)
+        s_ph, s_dirs = pinhole_tri_soa(soa, s_eyes), s_dirs.contiguous()
+        compare_hits(f"K1 ray_hits_pinhole ({n_steps} frames of {hh}x{ww})",
+                     kernels.ray_hits_pinhole(s_dirs, s_ph, n_tris, zn, zf, ww),
+                     ray_hits_pinhole_plain(s_dirs, s_ph, n_tris, zn, zf),
+                     s_dirs.shape[0] * s_dirs.shape[1])
     b4, b1 = k1[n_steps], k1[1]
     rows.append(dict(
         name="ray_hits_pinhole", route="cuda",
@@ -3246,6 +3372,7 @@ def main() -> int:
         max_abs_err=max(b1["err"], b4["err"]),
         ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound"][0],
         bound_by=b4["bound"][1], ceiling_ms=ceiling_ms(b4["ops"]), library_ms=None,
+        tested_share=b4["share"], all_pairs_ops_ms=b4["all_pairs"],
         ms_per_frame=b4["ms"] / n_steps, b1_ms=b1["ms"], b1_plain_ms=b1["plain_ms"],
         b1_bound_ms=b1["bound"][0], b1_ceiling_ms=ceiling_ms(b1["ops"]),
         shape=f"{n_steps} frames x {b1['n']} rays x {nt} tris in one launch"))
@@ -3254,13 +3381,15 @@ def main() -> int:
     # test alone, the `insane` scene's tables and a frame's rays with an
     # origin each (k2_cases), and at n_tris = 0: the launch and the block
     # scheduling alone, the floor under the small shapes.
-    k2, k2_plain = {}, {}
-    insane = pack_generated_scene(generate_scene("insane", seed=MAIN_PATH_SEED))
-    cases = k2_cases(assets, insane, eyes[-1], dirs4[-1], zn, zf)
-    for case in cases:
+    k2 = {}
+    for case in k2_cases(assets, insane, eyes[-1], dirs4[-1], zn, zf):
         o, d, c_soa, c_nt = case["origins"], case["dirs"], case["soa"], case["n_tris"]
         n, lo, hi = o.shape[0], case["t_min"], case["t_max"]
-        k2_plain[case["name"]] = want = ray_hits_plain(o, d, c_soa, case["nt"], lo, hi)
+        want = ray_hits_plain(o, d, c_soa, case["nt"], lo, hi)
+        against.append((
+            "ray_hits", f"{case['name']}, {n} rays x {case['nt']} tris",
+            lambda kern, o=o, d=d, c_soa=c_soa, c_nt=c_nt, lo=lo, hi=hi: kern.ray_hits(
+                o, d, c_soa, c_nt, lo, hi), want))
         err = compare_hits(f"K2 ray_hits ({case['name']})",
                            kernels.ray_hits(o, d, c_soa, c_nt, lo, hi), want, n)
         zero = torch.zeros_like(c_nt)
@@ -3277,8 +3406,6 @@ def main() -> int:
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms by "
             f"{r['bound'][1]}, no-FMA ceiling {r['ceiling']:.5f} ms, n_tris = 0 floor "
             f"{r['floor_ms']:.4f} ms)")
-    if args.against:
-        time_k2_against(args.against, cases, k2_plain)
     tab = k2["tables"]
     rows.append(dict(
         name="ray_hits", route="cuda",
@@ -3294,8 +3421,13 @@ def main() -> int:
     n_s = 40960
     samp = g[torch.randint(0, g.shape[0], (n_s,), generator=gen).to(dev)]
     samp = (samp + 0.5 * torch.randn(n_s, 3, generator=gen).to(dev)).contiguous()
-    tiling = kernels.min_sq_dists_tiling(g.shape[0], n_s, dev)
-    log(f"K3 tiling at {g.shape[0]} GT x {n_s} samples: {tiling}")
+    n_blocks = kernels.min_sq_dists_blocks()
+    c_one = torch.tensor([n_s], dtype=torch.int32, device=dev)
+    log(f"K3: {n_blocks} resident blocks; plan at {g.shape[0]} GT x {n_s} samples, full "
+        f"count: {kernels.min_sq_dists_plan([n_s], g.shape[0], n_s, n_blocks)}; the plan "
+        f"alone (the fill kernel with no output, after a torch.full) "
+        f"{kernels.device_ms(lambda: kernels.min_sq_dists_device_plan(c_one, g.shape[0], n_s), 50):.4f}"
+        f" ms")
     # The full count; the early poses' layout (a count below the sample
     # size, the rows past it at the sentinel, the loop cut at the count,
     # which is no multiple of the tile or the split); and an empty buffer.
@@ -3314,8 +3446,13 @@ def main() -> int:
             f"max_abs_err(d^2) {e:.3e}, covered(<1) {float((d2_k < 1).float().mean()):.4f}")
         if not torch.equal(d2_k, d2_p):
             raise AssertionError(f"K3 disagrees with its plain version ({label} count)")
+        check_k3_plan(f"K3 ({label} count)", count, g.shape[0], n_s)
         err = max(err, e)
         counts[label] = (s_in, count)
+        if label != "empty":
+            against.append(("min_sq_dists", f"{g.shape[0]} GT x {n_s} samples, {c} valid",
+                             lambda kern, s_in=s_in, count=count: kern.min_sq_dists(g, s_in, count),
+                             d2_p))
     s_full, c_full = counts["full"]
     s_part, c_part = counts["partial"]
     ops = g.shape[0] * n_s * OPS_K3
@@ -3340,12 +3477,14 @@ def main() -> int:
     # (the scene K2 took above, and ``hard``), a maze and the thin shapes.
     hard = pack_generated_scene(generate_scene("hard", seed=MAIN_PATH_SEED))
     max_len = int(params.max_path_len)
-    plan_rows, plan_plain = plan_kernel_rows(plan_cases(assets, insane, hard, dev),
-                                             max_len, dev)
+    plan_rows, plan_against = plan_kernel_rows(plan_cases(assets, insane, hard, dev),
+                                               max_len, dev)
     rows += plan_rows
+    scene_rows, scene_against = scene_kernel_rows(params, intr, dev)
+    rows += scene_rows
     if args.against:
-        time_plan_against(args.against, plan_plain, max_len)
-    rows += scene_kernel_rows(params, intr, dev)
+        time_against(args.against, against + plan_against + scene_against)
+    del against, plan_against, scene_against
     k1_row, k3_row = rows[0], rows[2]
     log(f"  ray_hits_pinhole: {k1_row['ms_per_frame']:.4f} ms a frame in the "
         f"{n_steps}-frame launch; one frame alone {k1_row['b1_ms']:.4f} ms (plain "
@@ -3485,7 +3624,7 @@ def main() -> int:
     # two or more cards).
     by_path["dp"] = dp_phase(db9.entries, micro9, all_cards, smi)
     # 12. The MACARONS greedy NBV: learned, oracle and object-level.
-    by_path.update(nbv_phase(params, assets, dev, smi))
+    by_path.update(nbv_phase(params, assets, dev, smi, args.against))
     # 13. The MACARONS online trainer: perfect depth, learned depth, the
     # full stack with the memory, the card against the CPU, the kernels.
     by_path.update(macarons_train_phase(params, assets, dev, smi))
@@ -3509,8 +3648,8 @@ def main() -> int:
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "ceiling_ms",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "library_ms", "tested_share", "all_pairs_ops_ms")
+    print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

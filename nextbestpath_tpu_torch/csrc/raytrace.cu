@@ -13,40 +13,70 @@
 // Both return, per ray, the nearest t in (t_min, t_max) (3.4e38 for none), the
 // number of hits, and the nearest triangle's index (the lowest on ties, -1
 // for none): a strict < over ascending triangle index. The division runs
-// only for a pair whose barycentric test passed. The loop bound, n_tris, is
-// read from device memory, so the caller never syncs to the host. Products
-// and sums round one by one (common.cuh), so t, counts and indices are
+// only for a pair whose barycentric test passed. The triangle count is read
+// from device memory, so the caller never syncs to the host. Products and
+// sums round one by one (common.cuh), so t, counts and indices are
 // bit-equal to the plain versions.
 //
-// What bounds them on an H100: issued instructions. A ray reads 12 bytes (24
-// for K2) and writes 12, then tests every triangle against a few bytes of
-// triangle data that every ray of a block shares. With no FMA each operation
-// is one instruction, so the ceiling is 128 a clock on each SM (~33.5e12 a
-// second), half the 67 TFLOP/s rate at which PERF.md's bounds are counted.
+// K1: cull the triangles for a tile of rays, then test the survivors.
+// A ray's line crosses only a few of a scene's triangles, and neighbouring
+// pixels see the same few. Testing every pair keeps K1 bound by issued
+// instructions: 20 operations a pair (three 3-term dots, the compares of
+// det, u and v, the add u + v and its compare), about 26 instructions a
+// pair in SASS with the shared-memory loads and the branch (PERF.md
+// section 7). So:
+// - A block owns an 8 x 16 pixel tile (8 rows of 16 columns) of one frame,
+//   a row-major image whose width the launcher is given (the depth
+//   renderers pass it), the tiles at the right and bottom edges ragged and
+//   masked. One ray a thread. Grid (ray tiles, B): a move's four frames are
+//   one launch.
+// - The block reduces the per-component min and max of its rays' directions
+//   (warp shuffles, then shared memory): the ray box.
+// - The triangles are staged K1_THREADS at a time, one a thread, read one
+//   round ahead. Each is folded (below), then tested against the box: it is
+//   dropped when some predicate of the folded test fails for every
+//   direction in the box. The survivors go into the shared tile with their
+//   indices, in ascending index order, compacted by a __ballot_sync /
+//   __popc prefix over the warps.
+// - When the tile could overflow in the next round, or the triangles end,
+//   every ray tests the survivors with the arithmetic, fold and strict <
+//   as before (the next survivor is read while the current one is tested).
+//   A dropped triangle fails the test for every ray of the block, so t, the
+//   count and the index are bit-equal to testing every pair.
+// On procgen `simple`/8 an 8 x 16 tile keeps about 2% of the triangles, on
+// `insane`/8 about 1%. The function then needs little more than bytes:
+// the rays read and the outputs written (24 B a ray) and each frame's
+// triangle SoA (40 B a triangle) once; chip_smoke.py's bound is that, or
+// the tested pairs' operations where they are more. The kernel does more:
+// each block reads its frame's SoA (mostly from L2) and spends about 85
+// operations a triangle on the cull.
 //
-// K1 needs 20 operations a pair: three 3-term dots (15), the three sign and
-// range compares of det, u and v, the add u + v and its compare (the
-// division, for the few pairs that pass, is left out). That is 5.9e8 for a
-// 256x456 frame of 252 triangles: a 17.6 us no-FMA ceiling. The kernel is
-// laid out to spend its issue slots on them:
-// - One ray a thread, 128 threads a block: 912 blocks a frame share out
-//   over the 132 SMs with a short tail.
-// - The triangle tile is staged as an AoS padded to 12 floats, three float4
-//   per triangle: a triangle is 3 16-byte broadcast loads, not 10 scalar
-//   ones. The staging transposes the (10, F) SoA of the block's frame. The
-//   next triangle's three loads are issued before the current one's tests.
-// - The triangle's sign is folded into its data (below), which takes the
-//   negations, the two selects and |det| out of every pair: what is left is
-//   the 20 operations above, with one branch a pair around the division.
-//   Passes are rare (a ray's line crosses a few of the triangles), and a
-//   warp's 32 neighbouring pixels pass alike.
-// - Grid (ray blocks, B): a move's four frames are one launch.
-// - The scene axis (JAX vmaps K1 over stacked scenes, one triangle count a
-//   scene): frame b reads its count at n_tris[b * count_stride]. A stride
-//   of 0 gives every frame the one count; a stride of 1 gives each frame
-//   its own, so B scenes padded to a common F each stop at their own
-//   count, and the launch costs the sum over the scenes, not B times the
-//   largest. The padded rows past a count are never read.
+// The cull. Over the box D = [lo, hi] of a block's directions, with
+// mag_i = max(|lo_i|, |hi_i|), the pair loop computes det = dot3_rn(d, n'),
+// us = dot3_rn(d, m2'), vs = dot3_rn(d, m1') and passes a pair iff
+// det > eps, us >= 0, vs >= 0 and rn(us + vs) <= det. A 3-term dot rounded
+// op by op is within gamma_3 * sum_i |d_i| |w_i| of d.w (gamma_3 = 3u / (1 -
+// 3u), u = 2^-24), plus an absolute 2^-149 a product for underflow. Let
+// S = sum_i mag_i (|n'_i| + |m2'_i| + |m1'_i|) and the margin
+// M = 2^-21 S + 2^-120 (8u S: above every error term below). Upper and
+// lower bounds of a linear form over D are taken at the box's corners,
+// max_D d.w = sum_i max(lo_i w_i, hi_i w_i), computed with round-up
+// (__fmul_ru, __fadd_ru; round-down for the lower bound), so that each is a
+// bound of the exact value. A triangle is dropped when
+//   (1) max_D d.n' + M <= eps: det <= d.n' + gamma_3 S <= eps on all of D;
+//   (2) max_D d.m2' + M < 0: us < 0 on all of D; (3) the same for m1';
+//   (4) min_D d.w~ - M > 0, w~ = rn(rn(m2' + m1') - n'): on all of D,
+//       us + vs - det >= d.(m2' + m1' - n') - gamma_3 S
+//                      >= d.w~ - (gamma_2 + gamma_3) S,
+//       and rn(us + vs) >= (us + vs) - u |us + vs| with
+//       |us + vs| <= (1 + gamma_3) S, so rn(us + vs) - det >=
+//       min_D d.w~ - 6.01u S > 0, and rn(us + vs) <= det fails.
+// Each clause fails on all of D, so no pair of the block that the pair loop
+// would pass is dropped. A triangle whose S is not finite is kept, and a
+// box that is not finite (an infinite or NaN direction throughout) keeps
+// every triangle. ops/raytrace.py::pinhole_cull_keep is this test in
+// PyTorch, each directed rounding taken one float further (nextafter), a
+// bound at least as loose.
 //
 // The fold: a hit that counts has t = t_num / det > t_min >= 0, so det has
 // the sign s of t_num, which is one value a triangle. The staging multiplies
@@ -60,6 +90,12 @@
 // gets zeros and can never pass; nor could it in the reference (t = 0). The
 // fold needs t_min >= 0, which every depth frame has (t_min = znear); the
 // entry point refuses a negative t_min.
+//
+// The scene axis (JAX vmaps K1 over stacked scenes, one triangle count a
+// scene): frame b reads its count at n_tris[b * count_stride]. A stride of
+// 0 gives every frame the one count; a stride of 1 gives each frame its
+// own, so B scenes padded to a common F each stop at their own count. The
+// padded rows past a count are never read.
 //
 // K2 needs 44 operations a pair: the origin difference s = o - v0 (3), the
 // cross products p = d x e2 and q = s x e1 (18), the dots det, u and v (15),
@@ -96,74 +132,193 @@
 // - One launch casts a scene's tables (sim/tables.py: the 3 L H inside-test
 //   rays and the 4 L H lattice edges together), where the old path took 5.
 //
-// ptxas (sm_90a): K1 47 registers and 12,336 bytes of shared memory; K2 56
-// registers and 12,288 bytes for every G; no spills.
+// ptxas (sm_90a): K1 70 registers and 13,472 bytes of shared memory (7
+// blocks an SM); K2 56 registers and 12,288 bytes for every G; no spills.
 #include <climits>
 
 #include "common.cuh"
 
 constexpr int K1_THREADS = 128;
-constexpr int K1_TILE = 256;
+constexpr int K1_TW = 16, K1_TH = 8;  // a block's pixel tile: 16 columns, 8 rows
+constexpr int K1_TILE = 256;          // survivors held in shared memory
+constexpr int K1_WARPS = K1_THREADS / 32;
+constexpr float K1_MARGIN = 4.76837158203125e-7f;  // 2^-21 = 8u
+constexpr float K1_TINY = 7.52316384526264e-37f;   // 2^-120
+
+struct RayBox {
+  float lo[3], hi[3], mag[3];
+};
+
+// max over the box of d.w, rounded up: at least the exact maximum.
+__device__ __forceinline__ float box_max_ru(const RayBox& bx, float w0,
+                                            float w1, float w2) {
+  const float a = fmaxf(__fmul_ru(bx.lo[0], w0), __fmul_ru(bx.hi[0], w0));
+  const float b = fmaxf(__fmul_ru(bx.lo[1], w1), __fmul_ru(bx.hi[1], w1));
+  const float c = fmaxf(__fmul_ru(bx.lo[2], w2), __fmul_ru(bx.hi[2], w2));
+  return __fadd_ru(__fadd_ru(a, b), c);
+}
+
+// min over the box of d.w, rounded down: at most the exact minimum.
+__device__ __forceinline__ float box_min_rd(const RayBox& bx, float w0,
+                                            float w1, float w2) {
+  const float a = fminf(__fmul_rd(bx.lo[0], w0), __fmul_rd(bx.hi[0], w0));
+  const float b = fminf(__fmul_rd(bx.lo[1], w1), __fmul_rd(bx.hi[1], w1));
+  const float c = fminf(__fmul_rd(bx.lo[2], w2), __fmul_rd(bx.hi[2], w2));
+  return __fadd_rd(__fadd_rd(a, b), c);
+}
+
+// The folded triangle q (n' = q[0..2], m2' = q[3..5], m1' = q[6..8]) fails
+// the pair test for every direction of the box (the note above).
+__device__ __forceinline__ bool culled(const RayBox& bx, const float* q) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    s = __fadd_ru(s, __fmul_ru(bx.mag[i],
+                               __fadd_ru(__fadd_ru(fabsf(q[i]), fabsf(q[3 + i])),
+                                         fabsf(q[6 + i]))));
+  const float m = __fadd_ru(__fmul_ru(K1_MARGIN, s), K1_TINY);
+  const bool no_det = __fadd_ru(box_max_ru(bx, q[0], q[1], q[2]), m) <= NBP_DET_EPS;
+  const bool no_u = __fadd_ru(box_max_ru(bx, q[3], q[4], q[5]), m) < 0.f;
+  const bool no_v = __fadd_ru(box_max_ru(bx, q[6], q[7], q[8]), m) < 0.f;
+  const bool no_sum =
+      __fsub_rd(box_min_rd(bx, sub_rn(add_rn(q[3], q[6]), q[0]),
+                           sub_rn(add_rn(q[4], q[7]), q[1]),
+                           sub_rn(add_rn(q[5], q[8]), q[2])),
+                m) > 0.f;
+  return isfinite(s) & (no_det | no_u | no_v | no_sum);
+}
+
+__device__ __forceinline__ void load_tri(float* q, const float* __restrict__ soa,
+                                         int f, int k) {
+#pragma unroll
+  for (int row = 0; row < 10; ++row) q[row] = soa[row * f + k];
+}
 
 __global__ void __launch_bounds__(K1_THREADS)
-ray_pinhole_kernel(const float* __restrict__ dirs, int n_rays,
+ray_pinhole_kernel(const float* __restrict__ dirs, int n_rays, int width,
                    const float* __restrict__ soa, int f,
                    const int* __restrict__ n_tris_p, int count_stride,
                    float t_min, float t_max, float* __restrict__ t_out,
                    int* __restrict__ cnt_out, int* __restrict__ idx_out) {
   __shared__ float4 tile[3 * (K1_TILE + 1)];
+  __shared__ int tile_idx[K1_TILE];
+  __shared__ float box_part[K1_WARPS][6];
+  __shared__ int warp_kept[K1_WARPS];
   const size_t frame = blockIdx.y;
   dirs += frame * n_rays * 3;
   soa += frame * 10 * f;
-  const int r = blockIdx.x * K1_THREADS + threadIdx.x;
-  const int rc = min(r, n_rays - 1);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // The block's rays. A thread past the frame's edge casts its tile's
+  // nearest ray (a ray of the tile: the box is not widened) and writes
+  // nothing.
+  const int tiles_x = (width + K1_TW - 1) / K1_TW;
+  const int height = n_rays / width;
+  const int row = (blockIdx.x / tiles_x) * K1_TH + threadIdx.x / K1_TW;
+  const int col = (blockIdx.x % tiles_x) * K1_TW + threadIdx.x % K1_TW;
+  const int r = row < height && col < width ? row * width + col : -1;
+  const int rc = min(row, height - 1) * width + min(col, width - 1);
   const float dx = dirs[3 * rc], dy = dirs[3 * rc + 1], dz = dirs[3 * rc + 2];
+
+  // The ray box (fminf and fmaxf pass over a NaN component).
+  float e[6] = {dx, dy, dz, dx, dy, dz};
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      e[c] = fminf(e[c], __shfl_xor_sync(0xffffffffu, e[c], off));
+      e[3 + c] = fmaxf(e[3 + c], __shfl_xor_sync(0xffffffffu, e[3 + c], off));
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) box_part[warp][c] = e[c];
+  }
+  __syncthreads();
+  RayBox bx;
+  bool box_ok = true;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float lo = box_part[0][c], hi = box_part[0][3 + c];
+#pragma unroll
+    for (int w = 1; w < K1_WARPS; ++w) {
+      lo = fminf(lo, box_part[w][c]);
+      hi = fmaxf(hi, box_part[w][3 + c]);
+    }
+    bx.lo[c] = lo;
+    bx.hi[c] = hi;
+    bx.mag[c] = fmaxf(fabsf(lo), fabsf(hi));
+    box_ok = box_ok & isfinite(lo) & isfinite(hi);
+  }
+
   float t_best = NBP_INF;
   int cnt = 0, best = -1;
   const int n_tris = clamp_count(n_tris_p + frame * count_stride, f);
-  for (int base = 0; base < n_tris; base += K1_TILE) {
-    const int m = min(K1_TILE, n_tris - base);
-    __syncthreads();
-    for (int k = threadIdx.x; k < m; k += K1_THREADS) {
-      float q[10];
-#pragma unroll
-      for (int row = 0; row < 10; ++row) q[row] = soa[row * f + base + k];
+  int kept = 0;  // survivors in the tile, the same in every thread
+  float q[10];
+  if (threadIdx.x < n_tris) load_tri(q, soa, f, threadIdx.x);
+  for (int base = 0; base < n_tris; base += K1_THREADS) {
+    const int k = base + threadIdx.x;
+    float qn[10];
+    if (k + K1_THREADS < n_tris) load_tri(qn, soa, f, k + K1_THREADS);
+    bool keep = false;
+    if (k < n_tris) {
       const float sg = q[9] > 0.f ? 1.f : (q[9] < 0.f ? -1.f : 0.f);
 #pragma unroll
       for (int row = 0; row < 6; ++row) q[row] = mul_rn(q[row], -sg);
 #pragma unroll
       for (int row = 6; row < 9; ++row) q[row] = mul_rn(q[row], sg);
-      tile[3 * k] = make_float4(q[0], q[1], q[2], q[3]);
-      tile[3 * k + 1] = make_float4(q[4], q[5], q[6], q[7]);
-      tile[3 * k + 2] = make_float4(q[8], fabsf(q[9]), 0.f, 0.f);
+      keep = !(box_ok && culled(bx, q));
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_kept[warp] = __popc(ballot);
+    __syncthreads();
+    int slot = kept + __popc(ballot & ((1u << lane) - 1u));
+#pragma unroll
+    for (int w = 0; w < K1_WARPS; ++w) {
+      const int c = warp_kept[w];
+      slot += w < warp ? c : 0;
+      kept += c;
+    }
+    if (keep) {
+      tile[3 * slot] = make_float4(q[0], q[1], q[2], q[3]);
+      tile[3 * slot + 1] = make_float4(q[4], q[5], q[6], q[7]);
+      tile[3 * slot + 2] = make_float4(q[8], fabsf(q[9]), 0.f, 0.f);
+      tile_idx[slot] = k;
     }
     __syncthreads();
-    // Folded n = (a.x, a.y, a.z), m2 = (a.w, b.x, b.y), m1 = (b.z, b.w, c.x),
-    // |t_num| = c.y. The next triangle is read while this one is tested (the
-    // tile has a spare slot for the read past the last).
-    float4 na = tile[0], nb = tile[1], nc = tile[2];
-    for (int k = 0; k < m; ++k) {
-      const float4 a = na, b = nb, c = nc;
-      na = tile[3 * k + 3];
-      nb = tile[3 * k + 4];
-      nc = tile[3 * k + 5];
-      const float det = dot3_rn(dx, dy, dz, a.x, a.y, a.z);
-      const float us = dot3_rn(dx, dy, dz, a.w, b.x, b.y);
-      const float vs = dot3_rn(dx, dy, dz, b.z, b.w, c.x);
-      if ((det > NBP_DET_EPS) & (us >= 0.f) & (vs >= 0.f) &
-          (add_rn(us, vs) <= det)) {
-        const float t = __fdiv_rn(c.y, det);
-        if (t > t_min && t < t_max) {
-          ++cnt;
-          if (t < t_best) {
-            t_best = t;
-            best = base + k;
+    if (kept > K1_TILE - K1_THREADS || base + K1_THREADS >= n_tris) {
+      // Folded n = (a.x, a.y, a.z), m2 = (a.w, b.x, b.y), m1 = (b.z, b.w,
+      // c.x), |t_num| = c.y. The next survivor is read while this one is
+      // tested (the tile has a spare slot for the read past the last). The
+      // next round's first barrier keeps the tile until all are done.
+      float4 na = tile[0], nb = tile[1], nc = tile[2];
+      for (int j = 0; j < kept; ++j) {
+        const float4 a = na, b = nb, c = nc;
+        na = tile[3 * j + 3];
+        nb = tile[3 * j + 4];
+        nc = tile[3 * j + 5];
+        const float det = dot3_rn(dx, dy, dz, a.x, a.y, a.z);
+        const float us = dot3_rn(dx, dy, dz, a.w, b.x, b.y);
+        const float vs = dot3_rn(dx, dy, dz, b.z, b.w, c.x);
+        if ((det > NBP_DET_EPS) & (us >= 0.f) & (vs >= 0.f) &
+            (add_rn(us, vs) <= det)) {
+          const float t = __fdiv_rn(c.y, det);
+          if (t > t_min && t < t_max) {
+            ++cnt;
+            if (t < t_best) {
+              t_best = t;
+              best = tile_idx[j];
+            }
           }
         }
       }
+      kept = 0;
     }
+#pragma unroll
+    for (int row = 0; row < 10; ++row) q[row] = qn[row];
   }
-  if (r < n_rays) {
+  if (r >= 0) {
     t_out += frame * n_rays;
     cnt_out += frame * n_rays;
     idx_out += frame * n_rays;
@@ -273,20 +428,25 @@ static void launch_general(const void* origins, const void* dirs, int n_rays,
 }
 
 // n_tris holds one count (count_stride 0) or one a frame (count_stride 1).
-// Refuses (cudaErrorInvalidValue) a negative t_min, which the fold forbids,
-// and a stride other than 0 or 1.
+// Each frame is a row-major image width rays wide, cast in 8 x 16 pixel
+// tiles. Refuses (cudaErrorInvalidValue) a negative t_min, which the fold
+// forbids, a stride other than 0 or 1, and a width that is not positive or
+// does not divide n_rays.
 extern "C" int nbp_ray_hits_pinhole(const void* dirs, int n_frames,
-                                    int n_rays, const void* soa, int f,
-                                    const void* n_tris, int count_stride,
-                                    float t_min, float t_max, void* t_out,
-                                    void* cnt_out, void* idx_out,
-                                    void* stream) {
-  if (!(t_min >= 0.f) || count_stride < 0 || count_stride > 1)
+                                    int n_rays, int width, const void* soa,
+                                    int f, const void* n_tris,
+                                    int count_stride, float t_min,
+                                    float t_max, void* t_out, void* cnt_out,
+                                    void* idx_out, void* stream) {
+  if (!(t_min >= 0.f) || count_stride < 0 || count_stride > 1 || width < 1 ||
+      n_rays % width != 0)
     return (int)cudaErrorInvalidValue;
   if (n_rays > 0 && n_frames > 0) {
-    const dim3 grid((n_rays + K1_THREADS - 1) / K1_THREADS, n_frames);
+    const dim3 grid(((width + K1_TW - 1) / K1_TW) *
+                        ((n_rays / width + K1_TH - 1) / K1_TH),
+                    n_frames);
     ray_pinhole_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)dirs, n_rays, (const float*)soa, f,
+        (const float*)dirs, n_rays, width, (const float*)soa, f,
         (const int*)n_tris, count_stride, t_min, t_max, (float*)t_out,
         (int*)cnt_out, (int*)idx_out);
   }

@@ -51,17 +51,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "nbp_ray_hits_pinhole": [_P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P,
-                             _P, _P],
+    "nbp_ray_hits_pinhole": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _F, _P,
+                             _P, _P, _P],
     "nbp_ray_hits": [_P, _P, _I, _P, _I, _P, _F, _F, _P, _P, _P, _P],
     "nbp_ray_hits_lanes": [_I, _I],
-    "nbp_min_sq_dists": [_P, _I, _I, _P, _I, _P, _P, _P],
-    "nbp_min_sq_dists_tiling": [_I, _I, _I, _I, _P],
+    "nbp_min_sq_dists": [_P, _I, _I, _P, _I, _P, _P, _P, _P],
+    "nbp_min_sq_dists_plan": [_P, _I, _I, _I, _I, _P, _P],
+    "nbp_min_sq_dists_blocks": [],
     "nbp_bfs_field": [_P, _P, _P, _I, _I, _I, _P, _P],
     "nbp_extract_path": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "nbp_plan_limits": [_P],
 }
-_NO_RESULT = ("nbp_min_sq_dists_tiling", "nbp_plan_limits")
+_NO_RESULT = ("nbp_plan_limits",)
 
 
 def reset_launch_counts() -> None:
@@ -186,9 +187,10 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _pinhole_launch(dirs, ph_soa, nt, count_stride, t_min, t_max):
+def _pinhole_launch(dirs, ph_soa, nt, count_stride, t_min, t_max, width):
     """K1 over B frames with one count (count_stride 0) or one a frame
-    (count_stride 1)."""
+    (count_stride 1); ``width`` the frames' image width (8 x 16 pixel
+    tiles)."""
     if not t_min >= 0.0:
         raise ValueError(f"t_min must be >= 0 for the pinhole kernel, got "
                          f"{t_min}")
@@ -196,14 +198,18 @@ def _pinhole_launch(dirs, ph_soa, nt, count_stride, t_min, t_max):
     _check(ph_soa, "ph_soa", torch.float32, (dirs.shape[0], 10, None))
     _check(nt, "n_tris", torch.int32,
            (dirs.shape[0] if count_stride else 1,))
+    b, n = dirs.shape[0], dirs.shape[1]
+    width = int(width)
+    if width < 1 or n % width:
+        raise ValueError(f"width {width} does not divide the {n} rays of a "
+                         f"frame")
     lib = build()
     dev = dirs.device
-    b, n = dirs.shape[0], dirs.shape[1]
     t = torch.empty((b, n), dtype=torch.float32, device=dev)
     cnt = torch.empty((b, n), dtype=torch.int32, device=dev)
     idx = torch.empty((b, n), dtype=torch.int32, device=dev)
     err = lib.nbp_ray_hits_pinhole(
-        dirs.data_ptr(), b, n, ph_soa.data_ptr(), ph_soa.shape[2],
+        dirs.data_ptr(), b, n, width, ph_soa.data_ptr(), ph_soa.shape[2],
         nt.data_ptr(), count_stride, float(t_min), float(t_max),
         t.data_ptr(), cnt.data_ptr(), idx.data_ptr(), _stream(dev))
     _raise_on(err, "nbp_ray_hits_pinhole")
@@ -211,24 +217,27 @@ def _pinhole_launch(dirs, ph_soa, nt, count_stride, t_min, t_max):
 
 
 def ray_hits_pinhole(dirs: torch.Tensor, ph_soa: torch.Tensor, n_tris,
-                     t_min: float, t_max: float):
+                     t_min: float, t_max: float, width: int):
     """K1 launch over B frames: dirs (B, N, 3) f32, pinhole SoA (B, 10, F)
     f32, one triangle count for all frames -> (t, cnt, idx), each (B, N).
     t_min must be >= 0: the kernel folds each triangle's sign into its data,
-    which holds only for hits in front of the origin."""
+    which holds only for hits in front of the origin. ``width``: each
+    frame's rays are a row-major image that wide (N a multiple of it), cast
+    in 8 x 16 pixel tiles, each culling the triangles its rays cannot hit."""
     out = _pinhole_launch(dirs, ph_soa, _count_tensor(n_tris, dirs.device),
-                          0, t_min, t_max)
+                          0, t_min, t_max, width)
     LAUNCHES["ray_hits_pinhole"] += 1
     return out
 
 
 def ray_hits_pinhole_scenes(dirs: torch.Tensor, ph_soa: torch.Tensor,
-                            n_tris: torch.Tensor, t_min: float, t_max: float):
+                            n_tris: torch.Tensor, t_min: float, t_max: float,
+                            width: int):
     """K1 launch with a triangle count a frame: dirs (B, N, 3), pinhole SoA
     (B, 10, F) and n_tris (B,) int32 on the card (frames of several scenes
     padded to one F; frame b stops at its own count) -> (t, cnt, idx), each
-    (B, N). t_min >= 0 as for ``ray_hits_pinhole``."""
-    out = _pinhole_launch(dirs, ph_soa, n_tris, 1, t_min, t_max)
+    (B, N). t_min >= 0 and ``width`` as for ``ray_hits_pinhole``."""
+    out = _pinhole_launch(dirs, ph_soa, n_tris, 1, t_min, t_max, width)
     LAUNCHES["ray_hits_pinhole_scenes"] += 1
     return out
 
@@ -264,15 +273,72 @@ def ray_hits_lanes(n_rays: int, device=None) -> int:
     return int(lib.nbp_ray_hits_lanes(int(n_rays), _sm_count(device)))
 
 
+# K3's work split, as csrc/coverage.cu holds it: GT points an item (P x
+# THREADS), samples a staged tile (the least chunk) and the items wanted for
+# each resident block.
+K3_POINTS_PER_ITEM = 1024
+K3_TILE = 64
+K3_ITEMS_PER_BLOCK = 8
+
+
+def min_sq_dists_plan(counts, n_g: int, n_s: int, n_blocks: int
+                      ) -> Dict[str, object]:
+    """K3's plan for valid counts ``counts`` (one a scene) of a capacity of
+    n_s samples, n_g GT points a scene and n_blocks resident blocks: the
+    host model of the plan the fill kernel makes. A work item is (scene, GT block, sample
+    range) over the scene's valid prefix; ``chunk`` is the samples an item,
+    ``total * n_gb / (K3_ITEMS_PER_BLOCK * n_blocks)`` rounded up to whole
+    tiles and held to [one tile, the tiles of n_s]; ``prefix[b]`` the items
+    of the scenes before scene b (``prefix[B]`` all of them). Item i of
+    scene b (``i = item - prefix[b]``) is GT block ``i % n_gb``, samples
+    from ``(i // n_gb) * chunk`` to the next chunk or the count."""
+    counts = [max(0, min(int(c), int(n_s))) for c in counts]
+    n_gb = -(-int(n_g) // K3_POINTS_PER_ITEM)
+    target = K3_ITEMS_PER_BLOCK * int(n_blocks)
+    want = -(-sum(counts) * n_gb // target)
+    tiles = min(max(1, -(-want // K3_TILE)), max(1, -(-int(n_s) // K3_TILE)))
+    chunk = tiles * K3_TILE
+    prefix = [0]
+    for c in counts:
+        prefix.append(prefix[-1] + n_gb * -(-c // chunk))
+    return {"points_per_item": K3_POINTS_PER_ITEM, "gt_blocks": n_gb,
+            "chunk": chunk, "prefix": prefix, "items": prefix[-1],
+            "blocks": int(n_blocks)}
+
+
+def min_sq_dists_blocks() -> int:
+    """The blocks of one K3 launch on the current card: the blocks an SM
+    holds at once (occupancy API) times the SM count."""
+    return int(build().nbp_min_sq_dists_blocks())
+
+
+def min_sq_dists_device_plan(counts: torch.Tensor, n_g: int, n_s: int
+                             ) -> torch.Tensor:
+    """K3's plan alone on the card (the fill kernel with no output), for
+    counts (B,) int32 on the card: (B + 3,) int32, [0] the item counter at
+    0, [1] the chunk and [2:] the prefix of ``min_sq_dists_plan``."""
+    _check(counts, "s_counts", torch.int32, (None,))
+    lib = build()
+    plan = torch.full((counts.shape[0] + 3,), -1, dtype=torch.int32,
+                      device=counts.device)
+    err = lib.nbp_min_sq_dists_plan(counts.data_ptr(), counts.shape[0],
+                                    int(n_g), int(n_s), min_sq_dists_blocks(),
+                                    plan.data_ptr(), _stream(counts.device))
+    _raise_on(err, "nbp_min_sq_dists_plan")
+    return plan
+
+
 def _min_sq_launch(g: torch.Tensor, s: torch.Tensor, counts: torch.Tensor):
-    """g (B, G, 3), s (B, S, 3), counts (B,) int32 -> (B, G)."""
+    """g (B, G, 3), s (B, S, 3), counts (B,) int32 -> (B, G). The plan's
+    scratch is allocated here, one a launch (a graph keeps its own)."""
     lib = build()
     dev = g.device
     n_b, n_g, n_s = g.shape[0], g.shape[1], s.shape[1]
     out = torch.empty((n_b, n_g), dtype=torch.float32, device=dev)
+    plan = torch.empty(n_b + 3, dtype=torch.int32, device=dev)
     err = lib.nbp_min_sq_dists(g.data_ptr(), n_b, n_g, s.data_ptr(), n_s,
-                               counts.data_ptr(), out.data_ptr(),
-                               _stream(dev))
+                               counts.data_ptr(), plan.data_ptr(),
+                               out.data_ptr(), _stream(dev))
     _raise_on(err, "nbp_min_sq_dists")
     return out
 
@@ -300,18 +366,6 @@ def min_sq_dists_scenes(g: torch.Tensor, s: torch.Tensor,
     out = _min_sq_launch(g, s, s_counts)
     LAUNCHES["min_sq_dists_scenes"] += 1
     return out
-
-
-def min_sq_dists_tiling(n_g: int, n_s: int, device=None,
-                        n_scenes: int = 1) -> Dict[str, int]:
-    """K3's tiling for n_scenes scenes of n_g GT points against a capacity
-    of n_s samples on the card: GT points a block, samples a split, and
-    splits."""
-    lib = build()
-    out = (ctypes.c_int * 3)()
-    lib.nbp_min_sq_dists_tiling(int(n_scenes), int(n_g), int(n_s),
-                                _sm_count(device), out)
-    return {"points_per_block": out[0], "chunk": out[1], "splits": out[2]}
 
 
 def plan_limits() -> Dict[str, int]:

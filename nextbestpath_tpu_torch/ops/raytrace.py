@@ -169,6 +169,112 @@ def ray_hits_pinhole_scenes_plain(dirs: torch.Tensor, ph_soa: torch.Tensor,
     return tuple(torch.stack([fr[i] for fr in frames]) for i in range(3))
 
 
+# ---------------------------------------------------------------------------
+# K1's cull (csrc/raytrace.cu), modelled in PyTorch
+# ---------------------------------------------------------------------------
+
+K1_TILE_W, K1_TILE_H = 16, 8  # a block's pixel tile
+_CULL_MARGIN = 2.0 ** -21
+_CULL_TINY = 2.0 ** -120
+
+
+def pinhole_ray_boxes(dirs: torch.Tensor, width: int):
+    """The ray boxes of K1's blocks: dirs (B, N, 3), each frame a row-major
+    image ``width`` wide -> (lo, hi) (B, K, 3) and the rays of each block in
+    the frame (K,), block k the 8 x 16 pixel tile k (row-major over the
+    tiles), K the tiles of a frame. A tile's threads past the frame's edge
+    cast its nearest ray, as the kernel's do; a NaN component is passed
+    over, as fminf and fmaxf pass over it."""
+    b, n = dirs.shape[0], dirs.shape[1]
+    dev = dirs.device
+    h = n // width
+    ty, tx = -(-h // K1_TILE_H), -(-width // K1_TILE_W)
+    rows = torch.clamp(torch.arange(ty * K1_TILE_H, device=dev), max=h - 1)
+    cols = torch.clamp(torch.arange(tx * K1_TILE_W, device=dev), max=width - 1)
+    img = dirs.reshape(b, h, width, 3)[:, rows][:, :, cols]
+    tiles = img.reshape(b, ty, K1_TILE_H, tx, K1_TILE_W, 3).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, ty * tx, K1_TILE_H * K1_TILE_W, 3)
+    in_r = torch.clamp(h - torch.arange(ty, device=dev) * K1_TILE_H,
+                       max=K1_TILE_H)
+    in_c = torch.clamp(width - torch.arange(tx, device=dev) * K1_TILE_W,
+                       max=K1_TILE_W)
+    rays = (in_r[:, None] * in_c[None, :]).reshape(-1)
+    nan = torch.isnan(tiles)
+    lo = torch.where(nan, torch.full_like(tiles, float("inf")), tiles).amin(2)
+    hi = torch.where(nan, torch.full_like(tiles, -float("inf")), tiles).amax(2)
+    return lo, hi, rays
+
+
+def _up(x):
+    return torch.nextafter(x, torch.full_like(x, float("inf")))
+
+
+def _down(x):
+    return torch.nextafter(x, torch.full_like(x, -float("inf")))
+
+
+def pinhole_cull_keep(ph_soa: torch.Tensor, lo: torch.Tensor,
+                      hi: torch.Tensor) -> torch.Tensor:
+    """K1's cull: ph_soa (B, 10, F), ray boxes lo, hi (B, K, 3) -> (B, K, F)
+    bool, False where the folded triangle fails the pair test for every
+    direction of block k's box (csrc/raytrace.cu's note). Each rounding the
+    kernel directs (round up, round down) is taken here as the nearest
+    float's neighbour in that direction, a bound at least as loose, so a
+    triangle this drops the kernel drops too."""
+    t_num = ph_soa[:, 9]
+    sg = torch.where(t_num > 0, 1.0, torch.where(t_num < 0, -1.0, 0.0))
+    sg = sg.to(torch.float32)[:, None, None, :]  # (B, 1, 1, F)
+    w = ph_soa[:, None, :9, :]                    # (B, 1, 9, F)
+    n = w[:, :, 0:3] * -sg
+    m2 = w[:, :, 3:6] * -sg
+    m1 = w[:, :, 6:9] * sg
+    lo = lo[:, :, :, None]                        # (B, K, 3, 1)
+    hi = hi[:, :, :, None]
+    mag = torch.maximum(lo.abs(), hi.abs())
+
+    def box_max(v):
+        p = torch.maximum(_up(lo * v), _up(hi * v))
+        return _up(_up(p[:, :, 0] + p[:, :, 1]) + p[:, :, 2])
+
+    def box_min(v):
+        p = torch.minimum(_down(lo * v), _down(hi * v))
+        return _down(_down(p[:, :, 0] + p[:, :, 1]) + p[:, :, 2])
+
+    mags = _up(mag * _up(_up(n.abs() + m2.abs()) + m1.abs()))
+    s = torch.zeros_like(mags[:, :, 0])
+    for i in range(3):
+        s = _up(s + mags[:, :, i])
+    m = _up(_up(_CULL_MARGIN * s) + _CULL_TINY)
+    eps = torch.tensor(_DET_EPS, dtype=torch.float32)
+    no_det = _up(box_max(n) + m) <= eps
+    no_u = _up(box_max(m2) + m) < 0
+    no_v = _up(box_max(m1) + m) < 0
+    no_sum = _down(box_min((m2 + m1) - n) - m) > 0
+    box_ok = (torch.isfinite(lo) & torch.isfinite(hi)).all(2)  # (B, K, 1)
+    return ~(box_ok & torch.isfinite(s) & (no_det | no_u | no_v | no_sum))
+
+
+def pinhole_tested_share(dirs: torch.Tensor, ph_soa: torch.Tensor, n_tris,
+                         width: int) -> float:
+    """The share of a K1 launch's (ray, triangle) pairs that its blocks
+    test after the cull (``pinhole_cull_keep``, the kernel's test or
+    looser): dirs (B, N, 3) in frames ``width`` wide, ph_soa (B, 10, F),
+    n_tris one count or (B,) counts. Each block's surviving triangles times
+    its rays in the frame, over N times the counts."""
+    b = dirs.shape[0]
+    counts = (n_tris.reshape(-1).tolist() if isinstance(n_tris, torch.Tensor)
+              else [n_tris])
+    counts = [_n_valid(c, ph_soa.shape[2]) for c in counts]
+    counts = counts * b if len(counts) == 1 else counts
+    tested = 0
+    for k in range(b):
+        lo, hi, rays = pinhole_ray_boxes(dirs[k:k + 1], width)
+        keep = pinhole_cull_keep(ph_soa[k:k + 1, :, :counts[k]], lo, hi)
+        tested += int((keep[0].sum(1) * rays).sum())
+    total = dirs.shape[1] * sum(counts)
+    return tested / total if total else 0.0
+
+
 def ray_hits_plain(origins: torch.Tensor, dirs: torch.Tensor,
                    soa: torch.Tensor, n_tris, t_min: float, t_max: float):
     """Plain version of K2 over a (9, F) SoA. -> (t, cnt, idx)."""
@@ -235,22 +341,25 @@ def pinhole_tri_soa(tri_soa: torch.Tensor, origin: torch.Tensor
 
 def ray_hits_pinhole(origin: torch.Tensor, dirs: torch.Tensor,
                      tri_soa: torch.Tensor, n_tris, t_min: float = 1e-4,
-                     t_max: float = _INF):
+                     t_max: float = _INF, width: Optional[int] = None):
     """ray_hits_full for rays sharing one origin (a camera frame).
 
     origin (3,) and dirs (N, 3), or B frames at once: origins (B, 3) and
     dirs (B, N, 3); tri_soa (9, F). Returns (t, n_hits, idx), each (N,) or
     (B, N). K1 (one launch for all frames) on CUDA tensors, its plain
-    version on CPU tensors."""
+    version on CPU tensors. ``width``: the rays are a row-major image that
+    wide, which K1 casts in pixel tiles (``kernels.ray_hits_pinhole``);
+    None takes the N rays as one row. The result does not depend on it."""
     ph = pinhole_tri_soa(tri_soa, origin)
     dirs = dirs.to(torch.float32).contiguous()
     if dirs.device.type == "cpu":
         return ray_hits_pinhole_plain(dirs, ph, n_tris, t_min, t_max)
+    width = dirs.shape[-2] if width is None else width
     if dirs.dim() == 2:
         out = kernels.ray_hits_pinhole(dirs[None], ph[None], n_tris, t_min,
-                                       t_max)
+                                       t_max, width)
         return tuple(x[0] for x in out)
-    return kernels.ray_hits_pinhole(dirs, ph, n_tris, t_min, t_max)
+    return kernels.ray_hits_pinhole(dirs, ph, n_tris, t_min, t_max, width)
 
 
 def ray_hits_full(origins: torch.Tensor, dirs: torch.Tensor,
@@ -300,7 +409,8 @@ def render_depth_batch(tri_soa: torch.Tensor, n_tris, Rs: torch.Tensor,
     eye, d_world = frame_rays(Rs, Ts, intr)
     t, _, _ = ray_hits_pinhole(eye, d_world, tri_soa, n_tris,
                                t_min=float(intr.znear),
-                               t_max=float(intr.zfar))
+                               t_max=float(intr.zfar),
+                               width=intr.image_width)
     zbuf = torch.where(t < _INF, t, torch.full_like(t, -1.0))
     return zbuf.reshape(-1, intr.image_height, intr.image_width)
 
@@ -325,7 +435,8 @@ def render_depth_scenes(tri_soas: torch.Tensor, n_tris: torch.Tensor,
         t, _, _ = ray_hits_pinhole_scenes_plain(d_world, ph, counts, zn, zf)
     else:
         t, _, _ = kernels.ray_hits_pinhole_scenes(d_world, ph,
-                                                  counts.contiguous(), zn, zf)
+                                                  counts.contiguous(), zn, zf,
+                                                  intr.image_width)
     zbuf = torch.where(t < _INF, t, torch.full_like(t, -1.0))
     return zbuf.reshape(B, K, intr.image_height, intr.image_width)
 
@@ -351,7 +462,8 @@ def render_rgbd(tri_soa: torch.Tensor, n_tris, R: torch.Tensor,
     eye, d_world = eye[0], d_world[0]
     t, _, idx = ray_hits_pinhole(eye, d_world, tri_soa, n_tris,
                                  t_min=float(intr.znear),
-                                 t_max=float(intr.zfar))
+                                 t_max=float(intr.zfar),
+                                 width=intr.image_width)
     hit = t < _INF
     idx_c = torch.clamp(idx.long(), 0, tri_soa.shape[1] - 1)
     e1 = tri_soa[3:6][:, idx_c].T

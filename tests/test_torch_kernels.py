@@ -64,7 +64,7 @@ def test_launchers_refuse_cpu_tensors(launch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         if launch == "pinhole":
             kernels.ray_hits_pinhole(x[None], torch.zeros(1, 10, 4), 4, 0.0,
-                                     1.0)
+                                     1.0, 4)
         elif launch == "general":
             kernels.ray_hits(x, x, torch.zeros(9, 4), 4, 0.0, 1.0)
         elif launch == "min_sq":
@@ -72,7 +72,7 @@ def test_launchers_refuse_cpu_tensors(launch):
         elif launch == "pinhole_scenes":
             kernels.ray_hits_pinhole_scenes(torch.stack([x, x]),
                                             torch.zeros(2, 10, 4), n2, 0.0,
-                                            1.0)
+                                            1.0, 4)
         elif launch == "min_sq_scenes":
             kernels.min_sq_dists_scenes(torch.stack([x, x]),
                                         torch.stack([x, x]), n2)
@@ -95,7 +95,7 @@ def test_pinhole_launcher_refuses_negative_t_min(t_min):
         ph = torch.zeros(1, 10, 4, device=dev)
         kernels.reset_launch_counts()
         with pytest.raises(ValueError, match="t_min"):
-            kernels.ray_hits_pinhole(dirs, ph, 4, t_min, 1.0)
+            kernels.ray_hits_pinhole(dirs, ph, 4, t_min, 1.0, 4)
         assert kernels.LAUNCHES["ray_hits_pinhole"] == 0
 
 
@@ -168,24 +168,128 @@ def test_min_sq_dists_equals_plain_version_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("g_case", ["one", "block-1", "block+1", "main"])
 def test_min_sq_dists_tiling_edges_on_card(g_case):
-    """K3 at the edges of its tiling: GT counts around the points a block
-    holds, and sample counts around a split boundary, against the plain
-    version, bit for bit. The main path's 20000 x 40960 is one case."""
+    """K3 at the edges of its work split: GT counts around the points an
+    item holds, and sample counts around a chunk boundary of the plan
+    (``min_sq_dists_plan`` at each count), against the plain version, bit
+    for bit. The main path's 20000 x 40960 is one case."""
     _need_card()
     n_s = 40960
-    block = kernels.min_sq_dists_tiling(20000, n_s)["points_per_block"]
+    block = kernels.K3_POINTS_PER_ITEM
     n_g = {"one": 1, "block-1": block - 1, "block+1": block + 1,
            "main": 20000}[g_case]
-    tiling = kernels.min_sq_dists_tiling(n_g, n_s)
-    assert tiling["splits"] * tiling["chunk"] >= n_s
+    n_blocks = kernels.min_sq_dists_blocks()
     rng = np.random.default_rng(n_g)
     g = torch.from_numpy(rng.uniform(-30, 30, (n_g, 3)).astype(np.float32)).cuda()
     s = torch.from_numpy(rng.uniform(-30, 30, (n_s, 3)).astype(np.float32)).cuda()
-    chunk = tiling["chunk"]
-    for count in (0, 1, 1023, 1025, chunk - 1, min(2 * chunk, n_s) - 1, n_s):
-        got = kernels.min_sq_dists(g, s, torch.tensor(count, device="cuda"))
+    chunk = kernels.min_sq_dists_plan([n_s], n_g, n_s, n_blocks)["chunk"]
+    for count in (0, 1, 63, 65, 127, 129, 1023, 1025, chunk - 1, chunk + 1,
+                  min(2 * chunk, n_s) - 1, n_s):
+        plan = kernels.min_sq_dists_plan([count], n_g, n_s, n_blocks)
+        assert plan["chunk"] % kernels.K3_TILE == 0
+        count_t = torch.tensor(count, device="cuda")
+        got = kernels.min_sq_dists(g, s, count_t)
         want = C.min_sq_dists_plain(g, s, count)
-        assert torch.equal(got, want), (n_g, count, tiling)
+        assert torch.equal(got, want), (n_g, count, plan["chunk"])
+        dev_plan = kernels.min_sq_dists_device_plan(
+            count_t.reshape(1).to(torch.int32), n_g, n_s)
+        assert dev_plan.tolist() == [0, plan["chunk"]] + plan["prefix"]
+
+
+def _ragged_scenes(counts, n_g=2500, n_s=3000, seed=0):
+    rng = np.random.default_rng(seed)
+    b = len(counts)
+    g = torch.from_numpy(rng.uniform(-40, 40, (b, n_g, 3)).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(-40, 40, (b, n_s, 3)).astype(np.float32))
+    s = torch.where((torch.arange(n_s) < torch.tensor(counts)[:, None])[..., None],
+                    s, torch.full_like(s, 1e9))
+    return g.cuda(), s.contiguous().cuda(), torch.tensor(counts, dtype=torch.int32).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [[3000], [0], [1, 128, 0, 3000, 129, 2999],
+                                    [40, 0, 0, 7, 3000, 1, 255, 256]])
+def test_min_sq_dists_scenes_ragged_counts_on_card(counts):
+    """K3 over scenes at ragged valid counts (0, 1, a tile and past it, the
+    capacity) against its plain version and against single launches, bit
+    for bit; the device plan's chunk and prefix equal the host model's."""
+    _need_card()
+    g, s, c = _ragged_scenes(counts)
+    kernels.reset_launch_counts()
+    got = kernels.min_sq_dists_scenes(g, s, c)
+    assert kernels.LAUNCHES["min_sq_dists_scenes"] == 1
+    assert torch.equal(got, C.min_sq_dists_scenes_plain(g, s, c))
+    single = torch.stack([kernels.min_sq_dists(gb, sb, cb) for gb, sb, cb in zip(g, s, c)])
+    assert torch.equal(got, single)
+    plan = kernels.min_sq_dists_plan(counts, g.shape[1], s.shape[1],
+                                     kernels.min_sq_dists_blocks())
+    dev_plan = kernels.min_sq_dists_device_plan(c, g.shape[1], s.shape[1])
+    assert dev_plan.tolist() == [0, plan["chunk"]] + plan["prefix"]
+
+
+@pytest.mark.cuda
+def test_min_sq_dists_graph_replay_on_card():
+    """Two K3 launches captured in one CUDA graph and replayed three times
+    equal their plain versions every time: the fill kernel resets the item
+    counter, so each replay draws its items from 0."""
+    _need_card()
+    g, s, c = _ragged_scenes([3000, 12, 0, 2000], seed=3)
+    g1, s1, c1 = g[0], s[0], torch.tensor([1500], dtype=torch.int32, device="cuda")
+    want_b = C.min_sq_dists_scenes_plain(g, s, c)
+    want_1 = C.min_sq_dists_plain(g1, s1, 1500)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.min_sq_dists_scenes(g, s, c)
+        kernels.min_sq_dists(g1, s1, c1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_b = kernels.min_sq_dists_scenes(g, s, c)
+        out_1 = kernels.min_sq_dists(g1, s1, c1)
+    for _ in range(3):
+        out_b.zero_()
+        out_1.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out_b, want_b)
+        assert torch.equal(out_1, want_1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(64, 114), (32, 56), (20, 37), (256, 456)])
+def test_pinhole_kernel_ragged_tiles_on_card(hw):
+    """K1 over a move's four frames of procgen simple/8 at frame sizes that
+    are no multiple of the 8 x 16 pixel tile (and 256 x 456) equals its
+    plain version bit for bit."""
+    _need_card()
+    from nextbestpath_tpu_torch.assets import (generate_scene,
+                                               pack_generated_scene)
+    from nextbestpath_tpu_torch.eval.nbp_planning import main_path_move
+    from nextbestpath_tpu_torch.geometry.cameras import get_camera_RT
+
+    a = pack_generated_scene(generate_scene("simple", seed=8))
+    intr = CameraIntrinsics(hw[0], hw[1], 60.0, 1.0, 750.0)
+    poses = main_path_move(a, 4, "cuda")
+    Rm, Tm = get_camera_RT(poses[:, :3], poses[:, 3:])
+    eyes, dirs = R.frame_rays(Rm, Tm, intr)
+    ph = R.pinhole_tri_soa(R.tris_to_soa(torch.from_numpy(a.tris).cuda()), eyes)
+    nt = torch.tensor([a.n_tris], dtype=torch.int32, device="cuda")
+    got = kernels.ray_hits_pinhole(dirs.contiguous(), ph, nt, 1.0, 750.0,
+                                   hw[1])
+    want = R.ray_hits_pinhole_plain(dirs.contiguous(), ph, a.n_tris, 1.0, 750.0)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert bool((got[0] < 3.4e38).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [3, 0, -5])
+def test_pinhole_launcher_refuses_a_width_that_does_not_divide(width):
+    _need_card()
+    dirs = torch.zeros(1, 10, 3, device="cuda")
+    ph = torch.zeros(1, 10, 4, device="cuda")
+    with pytest.raises(ValueError, match="width"):
+        kernels.ray_hits_pinhole(dirs, ph, 4, 0.0, 1.0, width)
 
 
 @pytest.mark.cuda
@@ -204,7 +308,7 @@ def test_pinhole_kernel_frames_and_tiles_on_card(n_frames, n_tris):
     ph = R.pinhole_tri_soa(soa, origins)
     nt = torch.tensor([n_tris], dtype=torch.int32, device="cuda")
     kernels.reset_launch_counts()
-    got = kernels.ray_hits_pinhole(dirs, ph, nt, 1e-4, 3.4e38)
+    got = kernels.ray_hits_pinhole(dirs, ph, nt, 1e-4, 3.4e38, 5003)
     assert kernels.LAUNCHES["ray_hits_pinhole"] == 1
     want = R.ray_hits_pinhole_plain(dirs, ph, n_tris, 1e-4, 3.4e38)
     for g, w in zip(got, want):
@@ -350,11 +454,11 @@ def test_launchers_check_dtype_and_shape_on_card():
     with pytest.raises(ValueError, match="float32"):
         kernels.min_sq_dists(x.double(), x, 4)
     with pytest.raises(ValueError, match="shape"):
-        kernels.ray_hits_pinhole(x, torch.zeros(1, 10, 4, device="cuda"), 4, 0.0, 1.0)
+        kernels.ray_hits_pinhole(x, torch.zeros(1, 10, 4, device="cuda"), 4, 0.0, 1.0, 4)
     with pytest.raises(ValueError, match="shape"):
-        kernels.ray_hits_pinhole(x[None], torch.zeros(1, 9, 4, device="cuda"), 4, 0.0, 1.0)
+        kernels.ray_hits_pinhole(x[None], torch.zeros(1, 9, 4, device="cuda"), 4, 0.0, 1.0, 4)
     with pytest.raises(ValueError, match="shape"):
-        kernels.ray_hits_pinhole(x[None], torch.zeros(2, 10, 4, device="cuda"), 4, 0.0, 1.0)
+        kernels.ray_hits_pinhole(x[None], torch.zeros(2, 10, 4, device="cuda"), 4, 0.0, 1.0, 4)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.ray_hits(x, torch.zeros(3, 4, device="cuda").T, torch.zeros(9, 4, device="cuda"), 4, 0.0, 1.0)
 
@@ -800,10 +904,12 @@ def test_scene_kernels_equal_plain_versions_on_card(kernel, n_scenes):
     kernels.reset_launch_counts()
     if kernel == "pinhole":
         dirs, ph, counts = args
-        got = kernels.ray_hits_pinhole_scenes(dirs, ph, counts, 1e-4, 3.4e38)
+        got = kernels.ray_hits_pinhole_scenes(dirs, ph, counts, 1e-4, 3.4e38,
+                                              50)
         want = R.ray_hits_pinhole_scenes_plain(
             dirs, ph, counts, 1e-4, 3.4e38)
-        single = [kernels.ray_hits_pinhole(d[None], p[None], c, 1e-4, 3.4e38)
+        single = [kernels.ray_hits_pinhole(d[None], p[None], c, 1e-4, 3.4e38,
+                                           50)
                   for d, p, c in zip(dirs, ph, counts)]
         single = tuple(torch.cat([x[i] for x in single]) for i in range(3))
         key = "ray_hits_pinhole"
@@ -852,7 +958,7 @@ def test_scene_launchers_check_shapes_on_card():
     with pytest.raises(ValueError, match="int32"):
         kernels.ray_hits_pinhole_scenes(
             x, torch.zeros(2, 10, 4, device="cuda"),
-            torch.zeros(2, dtype=torch.int64, device="cuda"), 0.0, 1.0)
+            torch.zeros(2, dtype=torch.int64, device="cuda"), 0.0, 1.0, 4)
     with pytest.raises(ValueError, match="shape"):
         kernels.min_sq_dists_scenes(
             x, torch.zeros(3, 4, 3, device="cuda"),
