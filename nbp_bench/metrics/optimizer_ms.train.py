@@ -1,0 +1,19 @@
+"""The host's milliseconds an AdamW step: the program's span ``optimizer``
+(``optimizer.step()`` on the accumulated mean), over the pass's AdamW
+steps; the median over the cell's passes before any profiler
+(``program_spans.median``): in a ``--trace 1`` run that is one
+pass, the window's first, which may fall in the slow phase of a
+process's start."""
+
+from nbp_bench.metrics import program_spans
+
+LAYER = "model"
+UNIT = "ms"
+MOVES = "train_samples_per_s"
+CELLS = ("train_b56",)
+
+
+def read(layer):
+    return program_spans.median(
+        layer, lambda r: 1e3 * r.host_s("optimizer") / r.units["adamw_steps"],
+        "optimizer")

@@ -32,7 +32,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..assets.scene_assets import SceneAssets
 from ..config import Params, default_params
@@ -51,11 +50,12 @@ from ..sim.proxy import ProxyField, carve_with_frame
 from ..sim.rollout import TrajectoryBuffer, move_and_capture
 from ..sim.sensor import PointBuffer, backproject_sample
 from ..sim.tables import build_scene_tables
+from ..utils.timing import span
 from .nbp_planning import RolloutResult
 
 ROT_SHIFTS = (-2, -1, 0, 1, 2)
 C_MAX = len(DIRS) * len(ROT_SHIFTS)  # candidate slots a pose
-# The rollout's ``record_function`` ranges (``sample`` and ``scone_vis``
+# The rollout's spans (``sample`` and ``scone_vis``
 # nest in ``gains``; ``oracle`` replaces carve to gains in the oracle mode).
 NBV_STAGES = ("coverage", "carve", "occupancy", "gumbel", "gains", "sample",
               "scone_vis", "oracle", "move")
@@ -246,7 +246,7 @@ def macarons_nbv_rollout(
 
     coverage_evolution: List[float] = []
     for pose_i in range(n_poses):
-        with record_function("coverage"):
+        with span("coverage"):
             scores = draws.uniform(group("cov"), (pc.capacity,))
             cov = float(coverage_percentage_exact(gt, pc.points, pc.count,
                                                   scores))
@@ -259,14 +259,14 @@ def macarons_nbv_rollout(
         R, T = get_camera_RT(cur_pose[None, :3], cur_pose[None, 3:])
         R, T = R[0], T[0]
         if not oracle:
-            with record_function("carve"):
+            with span("carve"):
                 proxy = carve_with_frame(
                     proxy, last_zbuf, R, T, cur_pose[:3], intr,
                     score_threshold=float(p.score_threshold),
                     carving_tolerance=float(p.carving_tolerance),
                     n_elev=n_elev_vs, n_azim=n_azim_vs,
                     sensor_range=float(p.sensor_range))
-            with record_function("occupancy"):
+            with span("occupancy"):
                 group("tokens")
                 pc_tokens = _sample_tokens(draws, pc.points, pc.count,
                                            n_tokens)
@@ -289,7 +289,7 @@ def macarons_nbv_rollout(
         cand_pose5 = torch.from_numpy(
             np.stack([pose5_np(c) for c in cands])).to(dev)
         if oracle:
-            with record_function("oracle"):
+            with span("oracle"):
                 covered_now = min_dists(gt, pc.points, pc.valid_mask(),
                                         s_count=pc.count) < 1.0
                 role = group("oracle")
@@ -297,10 +297,10 @@ def macarons_nbv_rollout(
                 gains = _oracle_gains(tri_soa, n_tris, cand_pose5, gt,
                                       covered_now, scores, intr, **cap_kw)
         else:
-            with record_function("gumbel"):
+            with span("gumbel"):
                 role = group("gain")
                 noise = draws.gumbels(role, [(seq_len, n_proxy)] * C_MAX)
-            with record_function("gains"):
+            with span("gains"):
                 all_vh = compute_view_harmonics(proxy.view_states[None],
                                                 base_h, h_polar, n_elev_vs,
                                                 n_azim_vs)[0]
@@ -312,7 +312,7 @@ def macarons_nbv_rollout(
         gains = torch.where(torch.from_numpy(cand_valid).to(dev), gains,
                             torch.full_like(gains, -float("inf")))
         nxt = cands[int(torch.argmax(gains))]
-        with record_function("move"):
+        with span("move"):
             last_zbuf = move(cur_pose, pose5(nxt))
         cur = nxt
 

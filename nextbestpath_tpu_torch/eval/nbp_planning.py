@@ -37,7 +37,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import kernels
 from ..assets import generate_scene, pack_generated_scene
@@ -61,6 +60,7 @@ from ..sim.rollout import (TrajectoryBuffer, interpolate_move,
                            move_and_capture, observe_current)
 from ..sim.sensor import PointBuffer
 from ..sim.tables import SceneTables, build_scene_tables
+from ..utils.timing import span
 
 OBSTACLE_THRESHOLD = 0.13
 
@@ -301,7 +301,7 @@ class NBPPlanningRollout:
         for pose_i in range(n_poses):
             if self.shared_rng:
                 self.draws.begin_pose()
-            with record_function("coverage"):
+            with span("coverage"):
                 cov = float(self._coverage(pc))
             coverage_evolution.append(cov)
             if verbose and pose_i % 10 == 0:
@@ -309,11 +309,11 @@ class NBPPlanningRollout:
 
             cur_pose5 = self._pose5(cur)
             self._group("obs")
-            with record_function("observe"):
+            with span("observe"):
                 observe_current(self.tri_soa, self.n_tris, cur_pose5, pc,
                                 self.draws.uniform("obs", (n_px,)), self.intr,
                                 **self._capture_kw())
-            with record_function("projections"):
+            with span("projections"):
                 model_input, traj_img = build_model_input(
                     pc, traj, cur_pose5[:3], self.y_bins,
                     n_pieces=int(p.n_pieces), img_size=img_size)
@@ -334,10 +334,10 @@ class NBPPlanningRollout:
                 if _edge_dir(a, b) is not None:
                     _memo_edge(edge_memo, a, b, EDGE_PASSABLE)
 
-            with record_function("unet"):
+            with span("unet"):
                 value_map, obstacle_map = self.model(model_input)
             if regen:
-                with record_function("plan"):
+                with span("plan"):
                     layout, proj256 = fuse_layout(
                         obstacle_map[0, :, :, 0], pc, traj_img, cur_pose5,
                         img_size=img_size)
@@ -361,7 +361,7 @@ class NBPPlanningRollout:
 
             self.regen_poses.append(regen)
             idx_history.append(cur)
-            with record_function("move"):
+            with span("move"):
                 move_and_capture(self.tri_soa, self.n_tris, cur_pose5,
                                  self._pose5(nxt), pc, traj,
                                  self._frame_scores("move"), self.intr,

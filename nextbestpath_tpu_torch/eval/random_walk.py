@@ -28,6 +28,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import kernels
 from ..assets.scene_assets import SceneAssets
 from ..config import Params, default_params
 from ..device import DeviceLike, resolve_device
@@ -40,6 +41,8 @@ from ..planning.grid_paths import DIRS
 from ..sim.rollout import TrajectoryBuffer, append_move, move_and_capture
 from ..sim.sensor import PointBuffer
 from ..sim.tables import build_scene_tables
+from ..utils import timing
+from ..utils.timing import count, span
 from .nbp_planning import RolloutResult
 from .scan_rollout import (MIN_POSE_CAPACITY, GraphSteps, _at, _stop_clock,
                            _sync, common_sizes, pad_scene_arrays,
@@ -161,7 +164,8 @@ class ScanRandomWalk(GraphSteps):
             for d in draws])
 
     def _draw_pose(self, draws) -> None:
-        """Each scene's draws of a pose into the static buffers."""
+        """Each scene's draws of a pose into the static buffers; the
+        provider calls add to the counter ``draw_calls``."""
         bufs = self.draw_bufs
         for b, d in enumerate(draws):
             d.begin_pose()
@@ -174,6 +178,7 @@ class ScanRandomWalk(GraphSteps):
             for k in range(self.n_steps):
                 bufs["move"][b, k].copy_(
                     d.uniform("move", (self.n_px,), step=k + 1))
+            count("draw_calls", 4 + self.n_steps)
 
     def _pose_step(self) -> None:
         """One pose of every scene (JAX ``ScanRandomWalk._step``)."""
@@ -197,32 +202,45 @@ class ScanRandomWalk(GraphSteps):
     @torch.no_grad()
     def run(self, n_poses: int = 200, seed: int = 8) -> List[RolloutResult]:
         """One walk a scene, scene i from seed + i; each result's wall time
-        is the whole batch's, and its rate counts every scene's poses."""
-        draws = [self.make_draws(seed + i) if self.make_draws is not None
-                 else TorchDraws(seed + i, self.device)
-                 for i in range(self.n_scenes)]
-        self._ensure_capacity(n_poses)
-        if self._use_graphs and not self._graphs:
-            self._capture()
-        self._init_state(draws)
-        self._begin_run()
-        _sync(self.device)
-        t1 = time.perf_counter()
-        for _ in range(n_poses):
-            self._draw_pose(draws)
-            self._step("pose")
-        results = []
-        for b in range(self.n_scenes):
-            coverage = self.cov_curve[b, :n_poses].cpu().numpy()
-            tr = self.trajs[b]
-            results.append(RolloutResult(
-                coverage_evolution=[float(c) for c in coverage],
-                auc=compute_auc(coverage),
-                cam_positions=tr.xyz[:int(tr.count)].to(
-                    "cpu", copy=True).numpy(),
-                wall_time_s=0.0, n_points=int(self.pcs[b].count),
-                steps_per_sec=0.0))
-        return _stop_clock(results, t1, n_poses, self.device)
+        is the whole batch's, and its rate counts every scene's poses.
+        Leaves a run record (``utils/timing.py``) of kind ``rollout``: the
+        spans ``rollout``, ``init``, ``draws``, ``pose`` and ``results``,
+        and the counters ``draw_calls`` and ``launches`` (the run's change
+        of ``kernels.LAUNCHES``, graph replays included)."""
+        launches0 = sum(kernels.LAUNCHES.values())
+        with timing.run("rollout", batch_poses=n_poses,
+                        scenes=self.n_scenes), span("rollout"):
+            with span("init"):
+                draws = [self.make_draws(seed + i)
+                         if self.make_draws is not None
+                         else TorchDraws(seed + i, self.device)
+                         for i in range(self.n_scenes)]
+                self._ensure_capacity(n_poses)
+                if self._use_graphs and not self._graphs:
+                    self._capture()
+                self._init_state(draws)
+                self._begin_run()
+                _sync(self.device)
+            t1 = time.perf_counter()
+            for _ in range(n_poses):
+                with span("draws"):
+                    self._draw_pose(draws)
+                self._step("pose")
+            with span("results"):
+                results = []
+                for b in range(self.n_scenes):
+                    coverage = self.cov_curve[b, :n_poses].cpu().numpy()
+                    tr = self.trajs[b]
+                    results.append(RolloutResult(
+                        coverage_evolution=[float(c) for c in coverage],
+                        auc=compute_auc(coverage),
+                        cam_positions=tr.xyz[:int(tr.count)].to(
+                            "cpu", copy=True).numpy(),
+                        wall_time_s=0.0, n_points=int(self.pcs[b].count),
+                        steps_per_sec=0.0))
+                results = _stop_clock(results, t1, n_poses, self.device)
+            count("launches", sum(kernels.LAUNCHES.values()) - launches0)
+        return results
 
 
 @torch.inference_mode()

@@ -58,9 +58,8 @@ rollout quality. It is fixed at construction, so the captured graphs hold
 it. Not ported: ``segment_len`` (a TPU watchdog workaround that gives
 identical results), the other ``ablate`` modes (``model_input``, ``rng``,
 ``coverage``, ``observe``, ``logic``, ``moves``, ``plan``: each skips a
-stage to time the rest, which the stage ranges of
-``torch.profiler.record_function`` measure here without changing the
-rollout) and ``mesh`` sharding.
+stage to time the rest, which the stages' spans (``utils/timing.py``)
+measure here without changing the rollout) and ``mesh`` sharding.
 """
 
 from __future__ import annotations
@@ -71,7 +70,6 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import kernels
 from ..assets.scene_assets import SceneAssets
@@ -96,6 +94,7 @@ from ..sim.rollout import (TrajectoryBuffer, append_move, interpolate_move,
 from ..sim.sensor import (PointBuffer, backproject_sample,
                           capture_depth_scenes, stratified_applies)
 from ..sim.tables import build_scene_tables
+from ..utils.timing import span
 from .nbp_planning import (RolloutResult, build_plan_projections,
                            fuse_layout_from_projections, select_goal)
 
@@ -339,12 +338,12 @@ class GraphSteps:
         torch.cuda.synchronize(self.device)
 
     def _step(self, name: str) -> None:
-        """One of the three steps: its graph replayed, or its function run
-        eagerly."""
-        if not self._use_graphs:
-            getattr(self, f"_{name}_step")()
-            return
-        with record_function(name):
+        """One of the three steps, in a span of its name: its graph
+        replayed, or its function run eagerly."""
+        with span(name):
+            if not self._use_graphs:
+                getattr(self, f"_{name}_step")()
+                return
             self._graphs[name].replay()
         kernels.count_replay(self.graph_launches[name])
         self.replays[name] += 1
@@ -585,12 +584,12 @@ class ScanRollout(GraphSteps):
         """Coverage, the loop-start frame, the regeneration decision and the
         edge memos (JAX ``_pre``)."""
         s, d, sc, pre = self.state, self.pose_draws, self.scene, self.pre
-        with record_function("coverage"):
+        with span("coverage"):
             cov = coverage_percentage(sc.gt, s.pc.points, s.pc.count,
                                       d.cov_start, d.cov_stride,
                                       gt_valid=sc.gt_valid)
         cur_pose5 = self._pose5(s.cur)
-        with record_function("observe"):
+        with span("observe"):
             observe_current(sc.tri_soa, sc.n_tris, cur_pose5, s.pc, d.obs,
                             self.intr, frame_ranks=d.obs_ranks,
                             **self._capture_kw())
@@ -626,7 +625,7 @@ class ScanRollout(GraphSteps):
         """The retry-independent half of the plan: projections, U-Net,
         layout fusion, scoring, edge blocking (JAX ``_plan_fields``)."""
         model_input, *proj = self._plan_input()
-        with record_function("unet"):
+        with span("unet"):
             value_map, obstacle_map = self.model(model_input)
         return self._plan_maps(value_map, obstacle_map, *proj)
 
@@ -634,7 +633,7 @@ class ScanRollout(GraphSteps):
         """The one-pass projections: (model_input (1, S, S, 5), traj_img,
         proj, filt)."""
         p, s = self.params, self.state
-        with record_function("projections"):
+        with span("projections"):
             return build_plan_projections(
                 s.pc, s.traj, self.pre.cur_pose5, self.scene.y_bins,
                 n_pieces=int(p.n_pieces), img_size=int(p.pc2img_size[0]))
@@ -702,29 +701,28 @@ class ScanRollout(GraphSteps):
         masked once an earlier one is done, as the JAX fori_loop's cond;
         such an attempt's planner kernels skip their search."""
         s = self.state
-        with record_function("plan"):
-            scores, layout_blocked, vm0 = self._plan_fields()
-            memo = s.edge_memo
-            path = torch.zeros_like(s.path)
-            path_len = torch.zeros_like(s.path_len)
-            done = torch.zeros((), dtype=torch.bool, device=self.device)
-            for _ in range(self.max_plan_retries):
-                m2, p2, l2, d2 = self._plan_attempt(scores, layout_blocked,
-                                                    vm0, memo, done)
-                memo = torch.where(done, memo, m2)
-                path = torch.where(done, path, p2)
-                path_len = torch.where(done, path_len, l2)
-                done = done | d2
-            s.edge_memo.copy_(memo)
-            s.path.copy_(path)
-            s.path_len.copy_(path_len)
+        scores, layout_blocked, vm0 = self._plan_fields()
+        memo = s.edge_memo
+        path = torch.zeros_like(s.path)
+        path_len = torch.zeros_like(s.path_len)
+        done = torch.zeros((), dtype=torch.bool, device=self.device)
+        for _ in range(self.max_plan_retries):
+            m2, p2, l2, d2 = self._plan_attempt(scores, layout_blocked,
+                                                vm0, memo, done)
+            memo = torch.where(done, memo, m2)
+            path = torch.where(done, path, p2)
+            path_len = torch.where(done, path_len, l2)
+            done = done | d2
+        s.edge_memo.copy_(memo)
+        s.path.copy_(path)
+        s.path_len.copy_(path_len)
 
     def _post_step(self) -> None:
         """The move (JAX ``_post``): next index, anti-revisit, the move's
         frames, the state update."""
         s, d, sc, pre = self.state, self.pose_draws, self.scene, self.pre
         nxt, path_record = self._post_next()
-        with record_function("move"):
+        with span("move"):
             move_and_capture(sc.tri_soa, sc.n_tris, pre.cur_pose5,
                              self._pose5(nxt), s.pc, s.traj, d.move, self.intr,
                              frame_ranks=d.move_ranks, **self._move_kw())
@@ -1045,13 +1043,13 @@ class BatchedScanRollout(GraphSteps):
         then each scene's regeneration decision and memos."""
         ms, st, sc = self.members, self.state, self.scene
         d = [m.pose_draws for m in ms]
-        with record_function("coverage"):
+        with span("coverage"):
             covs = coverage_percentage_scenes(
                 sc.gt, st["pc"][:, :-1], st["pc_count"],
                 torch.stack([x.cov_start for x in d]),
                 torch.stack([x.cov_stride for x in d]), sc.gt_valid)
         cur5 = torch.stack([m._pose5(m.state.cur) for m in ms])
-        with record_function("observe"):
+        with span("observe"):
             zb, R, T = capture_depth_scenes(sc.tri_soa, sc.n_tris,
                                             cur5[:, None], self.intr)
             for b, m in enumerate(ms):
@@ -1068,51 +1066,50 @@ class BatchedScanRollout(GraphSteps):
         regenerates."""
         ms, B = self.members, self.n_scenes
         L, H = self.L, self.H
-        with record_function("plan"):
-            inputs = [m._plan_input() for m in ms]
-            with record_function("unet"):
-                vmaps, omaps = self.model(torch.cat([x[0] for x in inputs]))
-            fields = [m._plan_maps(vmaps[b:b + 1], omaps[b:b + 1],
-                                   *inputs[b][1:])
-                      for b, m in enumerate(ms)]
-            start = torch.stack([m.state.cur[:2] for m in ms])
-            memo = [m.state.edge_memo for m in ms]
-            path = [torch.zeros_like(m.state.path) for m in ms]
-            plen = [torch.zeros_like(m.state.path_len) for m in ms]
-            done = [torch.zeros((), dtype=torch.bool, device=self.device)
-                    for _ in ms]
-            for _ in range(self.max_plan_retries):
-                blocked = torch.stack([apply_edge_memo(f[1], mm)
-                                       for f, mm in zip(fields, memo)])
-                # A scene's result is kept only where it regenerates and
-                # no earlier attempt is done.
-                skip = torch.stack(done) | ~self.regen
-                dist = bfs_distance_field_scenes(blocked, start, L, H, skip)
-                goals = [select_goal(f[0], dist[b], L, H)
-                         for b, f in enumerate(fields)]
-                path_arr, lens, _ = extract_path_scenes(
-                    dist, blocked, torch.stack([g[0] for g in goals]), L, H,
-                    max_len=self.max_len, skip=skip)
-                for b, m in enumerate(ms):
-                    m2, p2, l2, d2 = m._attempt_finish(
-                        path_arr[b], lens[b], goals[b][1], fields[b][2],
-                        memo[b])
-                    memo[b] = torch.where(done[b], memo[b], m2)
-                    path[b] = torch.where(done[b], path[b], p2)
-                    plen[b] = torch.where(done[b], plen[b], l2)
-                    done[b] = done[b] | d2
+        inputs = [m._plan_input() for m in ms]
+        with span("unet"):
+            vmaps, omaps = self.model(torch.cat([x[0] for x in inputs]))
+        fields = [m._plan_maps(vmaps[b:b + 1], omaps[b:b + 1],
+                               *inputs[b][1:])
+                  for b, m in enumerate(ms)]
+        start = torch.stack([m.state.cur[:2] for m in ms])
+        memo = [m.state.edge_memo for m in ms]
+        path = [torch.zeros_like(m.state.path) for m in ms]
+        plen = [torch.zeros_like(m.state.path_len) for m in ms]
+        done = [torch.zeros((), dtype=torch.bool, device=self.device)
+                for _ in ms]
+        for _ in range(self.max_plan_retries):
+            blocked = torch.stack([apply_edge_memo(f[1], mm)
+                                   for f, mm in zip(fields, memo)])
+            # A scene's result is kept only where it regenerates and
+            # no earlier attempt is done.
+            skip = torch.stack(done) | ~self.regen
+            dist = bfs_distance_field_scenes(blocked, start, L, H, skip)
+            goals = [select_goal(f[0], dist[b], L, H)
+                     for b, f in enumerate(fields)]
+            path_arr, lens, _ = extract_path_scenes(
+                dist, blocked, torch.stack([g[0] for g in goals]), L, H,
+                max_len=self.max_len, skip=skip)
             for b, m in enumerate(ms):
-                s, regen = m.state, m.pre.regen
-                s.edge_memo.copy_(torch.where(regen, memo[b], s.edge_memo))
-                s.path.copy_(torch.where(regen, path[b], s.path))
-                s.path_len.copy_(torch.where(regen, plen[b], s.path_len))
+                m2, p2, l2, d2 = m._attempt_finish(
+                    path_arr[b], lens[b], goals[b][1], fields[b][2],
+                    memo[b])
+                memo[b] = torch.where(done[b], memo[b], m2)
+                path[b] = torch.where(done[b], path[b], p2)
+                plen[b] = torch.where(done[b], plen[b], l2)
+                done[b] = done[b] | d2
+        for b, m in enumerate(ms):
+            s, regen = m.state, m.pre.regen
+            s.edge_memo.copy_(torch.where(regen, memo[b], s.edge_memo))
+            s.path.copy_(torch.where(regen, path[b], s.path))
+            s.path_len.copy_(torch.where(regen, plen[b], s.path_len))
 
     def _post_step(self) -> None:
         """Each scene's next pose, the B moves' frames in one K1 launch,
         each scene's appends and state update."""
         ms = self.members
         nxt = [m._post_next() for m in ms]
-        with record_function("move"):
+        with span("move"):
             self._moves(torch.stack([m.pre.cur_pose5 for m in ms]),
                         torch.stack([m._pose5(n[0]) for m, n in zip(ms, nxt)]),
                         [m.pose_draws.move for m in ms],

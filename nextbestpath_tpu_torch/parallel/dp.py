@@ -40,7 +40,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..config import Params, default_params
 from ..device import cudnn_f32
@@ -50,6 +49,7 @@ from ..train.replay import Experience, ReplayDB
 from ..train.train_nbp import (MICRO_BATCH, Dataset, LossAndGrads,
                                TrainState, _batch, _gather_pred_values,
                                make_optimizer, train_nbp)
+from ..utils.timing import span
 from .mesh import Mesh, local_block, replicate
 
 Batch = Dict[str, torch.Tensor]
@@ -72,16 +72,16 @@ def dp_loss_and_grads(model: NBP, mesh: Mesh, block: Batch,
     Returns (loss, gradients), the same on every rank."""
     params = list(model.parameters())
     with cudnn_f32(), batch_norm_group(model, mesh.group):
-        with record_function("forward"):
+        with span("forward"):
             vm, om = model(block["x"])
             pred = _gather_pred_values(vm, block["pixels"])
             share = nbp_loss(model.log_vars, pred, block["gains"], om,
                              block["layout"], value_weight=block["weights"],
                              sample_weight=block["sw"], totals=totals,
                              n_shares=mesh.size)
-        with record_function("backward"):
+        with span("backward"):
             grads = torch.autograd.grad(share, params)
-    with record_function("grad_all_reduce"):
+    with span("grad_all_reduce"):
         flat = torch.cat([g.reshape(-1) for g in grads]
                          + [share.detach().reshape(1).to(grads[0].dtype)])
         dist.all_reduce(flat, group=mesh.group)

@@ -19,11 +19,11 @@ graphs' device time by stage. Prints, a run:
   poses just before it, without; the device's busy time (the union of the
   device activities' intervals, the stage annotations left out) and its
   share of both walls;
-* each stage's range (``record_function``: coverage, observe, projections,
-  unet, plan, move in the eager steps; pre, plan, post around graph
-  replays): its host time, and the device time of the activities that
-  start inside the range's extent on the device (the profiler's user
-  annotation), a pose;
+* each stage's range (a span of ``utils/timing.py``: coverage, observe,
+  projections, unet, move in the eager steps; pre, plan, post around each
+  step, replayed or eager): its host time, and the device time of the
+  activities that start inside the range's extent on the device (the
+  profiler's user annotation), a pose;
 * the host time blocked in syncs (stream, device and event synchronizes,
   and blocking copies), against the wall: the rest of the host's time is
   dispatch;

@@ -19,11 +19,11 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-from torch.profiler import record_function
 
 from ..geometry.cameras import CameraIntrinsics, get_camera_RT, points_in_fov_mask
 from ..models.scone import SconeVis, coverage_gain
 from ..ops.view_state import normalize_points_in_prediction_box
+from ..utils.timing import span
 
 
 def sample_proxy_points(noise: torch.Tensor, occ_probs: torch.Tensor,
@@ -60,7 +60,7 @@ def predict_coverage_gain(noise: Sequence[torch.Tensor], scone_vis: SconeVis,
     box_diag = torch.linalg.norm(box_max - box_min)
     R, T = get_camera_RT(candidate_pose5[:, :3], candidate_pose5[:, 3:])
     C = candidate_pose5.shape[0]
-    with record_function("sample"):
+    with span("sample"):
         # Each candidate's mask, (C, P): the per-point arithmetic of one
         # camera's, broadcast over the C cameras.
         in_fov = points_in_fov_mask(proxy_points[None], R[:, None],
@@ -71,7 +71,7 @@ def predict_coverage_gain(noise: Sequence[torch.Tensor], scone_vis: SconeVis,
                                                in_fov[c], min_occ,
                                                use_occ_to_sample)
                            for c in range(C)])                  # (C, n)
-    with record_function("scone_vis"):
+    with span("scone_vis"):
         tokens = proxy_points[idx]                              # (C, n, 3)
         center = (tokens.amax(dim=1) + tokens.amin(dim=1)) / 2.0
         pts4 = torch.cat([normalize_points_in_prediction_box(

@@ -37,7 +37,6 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..assets.scene_assets import SceneAssets
 from ..config import Params, default_params
@@ -52,6 +51,7 @@ from ..ops.raytrace import tris_to_soa
 from ..sim.sensor import capture_rgbd
 from ..sim.tables import build_scene_tables
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.timing import span
 
 _DIRS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 _SCALE_WEIGHTS = (1.0, 0.5, 0.25, 0.125)
@@ -303,17 +303,17 @@ def pretrain_depth(
     os.makedirs(log_dir, exist_ok=True)
     t0 = time.time()
     for step_i in range(steps):
-        with record_function("batch"):
+        with span("batch"):
             draws.begin_group("batch")
             b = make_batch(d_scenes[step_i % len(d_scenes)], draws)
-        with record_function("step"):
+        with span("step"):
             opt_state, loss = train_step(opt_state, *b)
         log["loss"].append(float(loss))
         if verbose and (step_i < 3 or step_i % 50 == 0):
             print(f"step {step_i}: loss {log['loss'][-1]:.5f} "
                   f"({time.time() - t0:.0f}s)", flush=True)
         if (step_i + 1) % eval_every == 0 or step_i == steps - 1:
-            with record_function("eval"):
+            with span("eval"):
                 err = float(evaluate(*ev_batch))
             log["eval_err"].append({"step": step_i + 1, "err": err})
             if verbose:

@@ -57,7 +57,6 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..assets.scene_assets import SceneAssets
 from ..config import Params, default_params
@@ -79,6 +78,7 @@ from ..planning.grid_paths import (INF, bfs_distance_field, extract_path,
 from ..sim.rollout import TrajectoryBuffer, move_and_capture, observe_current
 from ..sim.sensor import PointBuffer, stratified_applies
 from ..sim.tables import build_scene_tables
+from ..utils.timing import span
 from .replay import ReplayDB
 
 COVERAGE_STOP = 0.95
@@ -335,20 +335,20 @@ class ScanCollection(GraphSteps):
         """Coverage, the loop-start frame, the model input, the GT layout
         and the plan decision."""
         s, d, sc, p = self.state, self.pose_draws, self.scene, self.p
-        with record_function("coverage"):
+        with span("coverage"):
             cov = coverage_percentage(sc.gt, s.pc.points, s.pc.count,
                                       d.cov_start, d.cov_stride,
                                       gt_valid=sc.gt_valid)
         cur_pose5 = self._pose5(s.cur)
-        with record_function("observe"):
+        with span("observe"):
             observe_current(sc.tri_soa, sc.n_tris, cur_pose5, s.pc, d.obs,
                             self.intr, frame_ranks=d.obs_ranks,
                             **self._capture_kw())
-        with record_function("model_input"):
+        with span("model_input"):
             model_input, _ = build_model_input(
                 s.pc, s.traj, cur_pose5[:3], sc.y_bins,
                 n_pieces=int(p.n_pieces), img_size=self.S)
-        with record_function("gt_layout"):
+        with span("gt_layout"):
             gt_obs = gt_obstacle_map_soa(sc.tri_soa, sc.n_tris, cur_pose5,
                                          grid_size=self.S,
                                          grid_range=tuple(p.prediction_range))
@@ -367,31 +367,30 @@ class ScanCollection(GraphSteps):
         s, sc, d = self.state, self.scene, self.pose_draws
         L, H = self.L, self.H
         cam = self.cur_pose5
-        with record_function("plan"):
-            with record_function("unet"):
-                value_map, _ = self.model(self.model_input)
-            vm0 = value_map[0]
-            scores = score_candidates_train(sc.positions, cam[:3], vm0,
-                                            s.cur[:2],
-                                            value_map_size=self.vms)
-            dist = bfs_distance_field(sc.gt_edge_blocked, s.cur[:2], L, H)
-            reachable = (dist >= 1) & (dist < INF)
-            ok = (scores > NEG / 2) & sc.inside & reachable
-            logits = torch.where(ok, scores / self.beta,
-                                 torch.full_like(scores, -float("inf")))
-            flat = torch.argmax(d.bolt + logits.reshape(-1))
-            goal = torch.stack([flat // H, flat % H])
-            found = ok.any()
-            path_arr, plen, _ = extract_path(dist, sc.gt_edge_blocked, goal,
-                                             L, H, max_len=self.max_len)
-            valid = torch.arange(self.max_len, device=self.device) < plen
-            rots = pick_orientations(path_arr, valid, vm0, sc.positions,
-                                     cam[:3], s.visited_rot, d.pick,
-                                     n_azim=self.A, value_map_size=self.vms)
-            path = torch.cat([path_arr, rots[:, None]], dim=-1).long()
-            s.path.copy_(torch.where(found, path, 0))
-            s.path_len.copy_(torch.where(found, plen.long(), 0))
-            self.found.copy_(found)
+        with span("unet"):
+            value_map, _ = self.model(self.model_input)
+        vm0 = value_map[0]
+        scores = score_candidates_train(sc.positions, cam[:3], vm0,
+                                        s.cur[:2],
+                                        value_map_size=self.vms)
+        dist = bfs_distance_field(sc.gt_edge_blocked, s.cur[:2], L, H)
+        reachable = (dist >= 1) & (dist < INF)
+        ok = (scores > NEG / 2) & sc.inside & reachable
+        logits = torch.where(ok, scores / self.beta,
+                             torch.full_like(scores, -float("inf")))
+        flat = torch.argmax(d.bolt + logits.reshape(-1))
+        goal = torch.stack([flat // H, flat % H])
+        found = ok.any()
+        path_arr, plen, _ = extract_path(dist, sc.gt_edge_blocked, goal,
+                                         L, H, max_len=self.max_len)
+        valid = torch.arange(self.max_len, device=self.device) < plen
+        rots = pick_orientations(path_arr, valid, vm0, sc.positions,
+                                 cam[:3], s.visited_rot, d.pick,
+                                 n_azim=self.A, value_map_size=self.vms)
+        path = torch.cat([path_arr, rots[:, None]], dim=-1).long()
+        s.path.copy_(torch.where(found, path, 0))
+        s.path_len.copy_(torch.where(found, plen.long(), 0))
+        self.found.copy_(found)
 
     def _post_step(self) -> None:
         """The record, the next waypoint and the move."""
@@ -415,7 +414,7 @@ class ScanCollection(GraphSteps):
         nxt = torch.stack([nxt[0], nxt[1], torch.where(override, d.rot,
                                                        nxt[2])])
         nxt = torch.where(done, s.cur, nxt)
-        with record_function("move"):
+        with span("move"):
             move_and_capture(sc.tri_soa, sc.n_tris, self.cur_pose5,
                              self._pose5(nxt), s.pc, s.traj, d.move,
                              self.intr, frame_ranks=d.move_ranks,

@@ -33,7 +33,7 @@ The models are applied functionally on variable dicts
 throughout, as the JAX trainer applies ManyDepth with ``train=False``.
 Draws come in the sequential schedule of ``draws.py`` (a ``begin_group``
 a JAX ``next_key()``); the default provider is a ``torch.Generator`` on
-the device. Each stage runs in a ``record_function`` range
+the device. Each stage runs in a span of ``utils/timing.py``
 (``MACARONS_STAGES``). On the card every convolution and matmul of the
 path runs in full f32 (``full_f32``).
 """
@@ -47,7 +47,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from ..assets.scene_assets import SceneAssets
 from ..config import Params, default_params
@@ -70,6 +69,7 @@ from ..sim.sensor import (PointBuffer, backproject_sample, capture_depth,
                           capture_rgbd)
 from ..sim.surface_store import SurfaceStore, camera_coverage_gain
 from ..sim.tables import build_scene_tables
+from ..utils.timing import span
 from .depth_losses import (color_jitter, error_mask_from_disparity,
                            horizontal_flip, photometric_loss,
                            regularity_loss)
@@ -498,7 +498,7 @@ def train_macarons_online(
         R_a = torch.stack([cam(f)[0] for f in alphas])
         T_a = torch.stack([cam(f)[1] for f in alphas])
         aug = draws.uniforms(group("depth"), AUG_SHAPES)
-        with record_function("depth_step"):
+        with span("depth_step"):
             new_vars, new_opt, photo, _ = depth_step(
                 model.depth_vars, state.depth_opt_state, img(tgt["rgb"]),
                 *cam(tgt), x_alpha, R_a, T_a, aug)
@@ -529,7 +529,7 @@ def train_macarons_online(
                     sensor_range=float(p.sensor_range))
 
     for pose_i in range(n_poses):
-        with record_function("coverage"):
+        with span("coverage"):
             cov = float(coverage_percentage_exact(
                 gt, pc.points, pc.count,
                 draws.uniform(group("cov"), (pc.capacity,))))
@@ -539,7 +539,7 @@ def train_macarons_online(
 
         cur_pose = pose5(cur)
         pose_history.append([float(v) for v in pose5_np(cur)])
-        with record_function("render"):
+        with span("render"):
             if need_rgb:
                 rgb, zbuf, R, T = capture_rgbd(tri_soa, n_tris, cur_pose,
                                                intr, tri_colors=tri_colors,
@@ -561,7 +561,7 @@ def train_macarons_online(
             # -1, -2 and the just-captured +1.
             hist = [frame_hist[-3], frame_hist[-4], frame_hist[-1]]
             aug = draws.uniforms(group("depth"), AUG_SHAPES)
-            with record_function("depth_step"):
+            with span("depth_step"):
                 new_vars, new_opt, photo, reg = depth_step(
                     model.depth_vars, state.depth_opt_state,
                     *frame_hist[-2], torch.stack([f[0] for f in hist]),
@@ -572,7 +572,7 @@ def train_macarons_online(
 
         def infer_current():
             past = [frame_hist[-2], frame_hist[-3]]
-            with record_function("depth_infer"):
+            with span("depth_infer"):
                 return depth_infer(model.depth_vars, rgb, R, T,
                                    torch.stack([f[0] for f in past]),
                                    torch.stack([f[1] for f in past]),
@@ -598,7 +598,7 @@ def train_macarons_online(
                               T.cpu().numpy())
             frame_nb += 1
             for _ in range(memory_replay_loops):
-                with record_function("replay"):
+                with span("replay"):
                     rl = run_memory_replay(mem_rng)
                 if rl is not None:
                     logs["replay_occ_loss"].append(rl)
@@ -607,15 +607,15 @@ def train_macarons_online(
                     if dl_r is not None:
                         logs["replay_depth_loss"].append(dl_r)
 
-        with record_function("fill"):
+        with span("fill"):
             batch = frame_points("frame", zbuf_used, R, T)
             surface = surface.fill(batch.points, batch.valid)
         if log_depth_error:
-            with record_function("coverage"):
+            with span("coverage"):
                 logs["store_coverage"].append(float(coverage_percentage_exact(
                     gt, surface.points, surface.count,
                     draws.uniform(group("store_cov"), (surface.capacity,)))))
-        with record_function("carve"):
+        with span("carve"):
             proxy = carve_with_frame(proxy, zbuf_used, R, T, cur_pose[:3],
                                      intr, **carve_kw)
 
@@ -631,7 +631,7 @@ def train_macarons_online(
             np.stack([pose5_np(c) for c in cands])).to(dev)
         R_c, T_c = get_camera_RT(cand_pose[:, :3], cand_pose[:, 3:5])
 
-        with record_function("tokens"):
+        with span("tokens"):
             # Curriculum: proxy tokens within the ramp's distance of the
             # camera (all of them when none is), as Gumbel-max.
             d_t = curriculum_dists[min(pose_i, len(curriculum_dists) - 1)]
@@ -653,7 +653,7 @@ def train_macarons_online(
                                  shape=(n_tokens,))
             pc_tokens = pc.points[tidx]
 
-        with record_function("nbv"), torch.no_grad(), full_f32():
+        with span("nbv"), torch.no_grad(), full_f32():
             cand_fov = points_in_fov_mask(
                 proxy_pts[None], R_c[:, None], T_c[:, None], intr,
                 fov_range=float(p.sensor_range)).to(torch.float32)
@@ -669,9 +669,9 @@ def train_macarons_online(
             chosen = int(torch.argmax(gains))
         nxt = cands[chosen]
 
-        with record_function("move"):
+        with span("move"):
             move(cur_pose, pose5(nxt))
-        with record_function("gain"):
+        with span("gain"):
             zb2, R2, T2 = capture_depth(tri_soa, n_tris, pose5(nxt), intr)
             new_batch = frame_points("new_frame", zb2, R2, T2)
             gain, surface = camera_coverage_gain(
@@ -684,7 +684,7 @@ def train_macarons_online(
                               device=dev)
         measured[chosen] = torch.clamp(
             gain / torch.clamp(new_batch.valid.sum(), min=1), min=1e-3)
-        with record_function("scone_step"):
+        with span("scone_step"):
             ol, cl = scone_step(pc_tokens, proxy_pts, vh, sup_occ, cand_xyz,
                                 cand_fov,
                                 torch.from_numpy(cand_valid).to(dev),
@@ -694,7 +694,7 @@ def train_macarons_online(
 
         if (not use_perfect_depth and remap_every > 0 and pose_i > 0
                 and pose_i % remap_every == 0 and len(all_frames) >= 3):
-            with record_function("remap"):
+            with span("remap"):
                 surface, pc, proxy = _remap(
                     all_frames, depth_infer, model, img, frame_points,
                     surface, proxy, intr, carve_kw, memory if use_memory

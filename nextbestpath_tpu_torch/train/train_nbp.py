@@ -14,7 +14,7 @@ state does. The default 7 micro batches of 8 make the reference's logical
 batch of 56.
 
 A micro step (forward in train mode, loss, backward, and on the k-th the
-optimizer step; each a ``record_function`` range for the profiler) runs
+optimizer step; each a span of ``utils/timing.py``) runs
 under ``cudnn_f32``: autograd runs the backward
 convolutions after the forward has returned, so the U-Net's own guard
 does not cover them. The caller's TF32 flag is back after the step.
@@ -45,12 +45,13 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import Params, default_params
 from ..models.convert import flax_to_state_dict, state_dict_to_flax
 from ..device import cudnn_f32
 from ..models.unet import NBP, nbp_loss
+from ..utils import timing
+from ..utils.timing import span
 from .replay import Experience, ReplayDB
 
 MAX_PIXELS = 128  # pad width for per-experience target pixel lists
@@ -225,10 +226,11 @@ def _gather_pred_values(value_map: torch.Tensor, pixels: torch.Tensor
 
 
 def _batch(ds: Dataset, idx: torch.Tensor, sw: torch.Tensor):
-    x = ds["x"][idx].to(torch.float32)
-    layout = ds["layout"][idx].to(torch.float32)[..., None]
-    weights = ds["pweights"][idx] * sw[:, None]
-    return x, layout, ds["pixels"][idx], ds["gains"][idx], weights
+    with span("batch"):
+        x = ds["x"][idx].to(torch.float32)
+        layout = ds["layout"][idx].to(torch.float32)[..., None]
+        weights = ds["pweights"][idx] * sw[:, None]
+        return x, layout, ds["pixels"][idx], ds["gains"][idx], weights
 
 
 def _accumulate(state: TrainState, grads) -> None:
@@ -243,7 +245,7 @@ def _accumulate(state: TrainState, grads) -> None:
     params = state.params
     for p, g in zip(params, state.acc):
         p.grad = g
-    with record_function("optimizer"):
+    with span("optimizer"):
         state.optimizer.step()
     for p in params:
         p.grad = None
@@ -257,13 +259,13 @@ def _loss_and_grads(model: NBP, ds: Dataset, idx: torch.Tensor,
     """The loss of the micro batch (idx, sw) gathered from the staged
     dataset, in the model's current mode, and its gradients. Returns
     (loss, gradients), the loss detached."""
-    with record_function("forward"):
+    with span("forward"):
         x, layout, pixels, gains, weights = _batch(ds, idx, sw)
         vm, om = model(x)
         pred_vals = _gather_pred_values(vm, pixels)
         loss = nbp_loss(model.log_vars, pred_vals, gains, om, layout,
                         value_weight=weights, sample_weight=sw)
-    with record_function("backward"):
+    with span("backward"):
         grads = torch.autograd.grad(loss, list(model.parameters()))
     return loss.detach(), grads
 
@@ -288,7 +290,7 @@ def _train_step_ds(state: TrainState, ds: Dataset, idx: torch.Tensor,
     model.train()
     with cudnn_f32():
         loss, grads = loss_and_grads(model, ds, idx, sw)
-        with record_function("accumulate"):
+        with span("accumulate"):
             _accumulate(state, grads)
     return loss
 
@@ -322,23 +324,28 @@ def _micro_chunks(indices: List[int], micro: int,
     (its rows still enter the BatchNorm statistics), else with the first
     index."""
     for j in range(0, len(indices), micro):
-        chunk = indices[j: j + micro]
-        n_pad = micro - len(chunk)
-        if n_pad and rng is not None:
-            pad = [indices[rng.randrange(len(indices))] for _ in range(n_pad)]
-        else:
-            pad = [indices[0] if indices else 0] * n_pad
-        sw = np.zeros((micro,), np.float32)
-        sw[: len(chunk)] = 1.0
-        yield (torch.tensor(list(chunk) + pad, dtype=torch.int64,
-                            device=device),
-               torch.from_numpy(sw).to(device))
+        with span("chunk"):
+            chunk = indices[j: j + micro]
+            n_pad = micro - len(chunk)
+            if n_pad and rng is not None:
+                pad = [indices[rng.randrange(len(indices))]
+                       for _ in range(n_pad)]
+            else:
+                pad = [indices[0] if indices else 0] * n_pad
+            sw = np.zeros((micro,), np.float32)
+            sw[: len(chunk)] = 1.0
+            idx = torch.tensor(list(chunk) + pad, dtype=torch.int64,
+                               device=device)
+            sw = torch.from_numpy(sw).to(device)
+        yield idx, sw
 
 
 def _mean_loss(losses: List[torch.Tensor]) -> float:
     if not losses:
         return 0.0
-    return float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
+    with span("loss_read"):
+        return float(np.mean(torch.stack(losses).cpu().numpy().astype(
+            np.float64)))
 
 
 def train_epoch_ds(state: TrainState, ds: Dataset, index_pool: List[int],
@@ -346,13 +353,22 @@ def train_epoch_ds(state: TrainState, ds: Dataset, index_pool: List[int],
                    loss_and_grads: LossAndGrads = _loss_and_grads
                    ) -> Tuple[TrainState, float]:
     """One shuffled pass over ``index_pool`` of the staged dataset; returns
-    (state, mean micro-step loss)."""
-    pool = list(index_pool)
-    rng.shuffle(pool)
-    losses = [_train_step_ds(state, ds, idx, sw, loss_and_grads)
-              for idx, sw in _micro_chunks(pool, micro_batch, rng=rng,
-                                           device=state.device)]
-    return state, _mean_loss(losses)
+    (state, mean micro-step loss). Leaves a run record
+    (``utils/timing.py``) of kind ``pass``: the spans ``pass``,
+    ``shuffle``, ``chunk``, ``forward`` (holding ``batch``), ``backward``,
+    ``accumulate`` (holding ``optimizer``) and ``loss_read``, over its
+    micro steps, AdamW steps and rows."""
+    micro_steps = -(-len(index_pool) // micro_batch)
+    with timing.run("pass", micro_steps=micro_steps,
+                    adamw_steps=(state.mini_step + micro_steps)
+                    // state.every_k, rows=len(index_pool)), span("pass"):
+        with span("shuffle"):
+            pool = list(index_pool)
+            rng.shuffle(pool)
+        losses = [_train_step_ds(state, ds, idx, sw, loss_and_grads)
+                  for idx, sw in _micro_chunks(pool, micro_batch, rng=rng,
+                                               device=state.device)]
+        return state, _mean_loss(losses)
 
 
 def validate_ds(state: TrainState, ds: Dataset, n: int,

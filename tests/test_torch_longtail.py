@@ -421,6 +421,12 @@ def test_pc_similarity_matches_jax(n_rec):
 # -- the packages -----------------------------------------------------------------
 
 
+# Names of the JAX package's ``__init__``s that the port dropped on
+# purpose: its print timers and profiler hook, which the port's spans and
+# run records (``utils/timing.py``) replace.
+NOT_EXPORTED = {"utils": {"PhaseTimers", "TimeCheck", "profiler_trace"}}
+
+
 @pytest.mark.parametrize("sub", ["assets", "geometry", "models", "ops",
                                  "planning", "sim", "train", "utils",
                                  "eval"])
@@ -428,7 +434,8 @@ def test_package_exports_those_of_jax(sub):
     """Each subpackage's ``__init__`` exports every name the JAX one does,
     apart from a name that is also one of its submodules (the JAX
     package's ``train.train_nbp`` and ``models.attention`` functions hide
-    their modules; the port keeps the modules reachable)."""
+    their modules; the port keeps the modules reachable) and the names
+    dropped on purpose, which it does not export."""
     import importlib
     import types
 
@@ -441,7 +448,11 @@ def test_package_exports_those_of_jax(sub):
                                                                  f"{n}.py"))]
     for n in shadowing:
         assert isinstance(getattr(mod, n), types.ModuleType), n
-    assert names and [n for n in names if not hasattr(mod, n)] == []
+    dropped = NOT_EXPORTED.get(sub, set())
+    assert dropped <= set(names)
+    assert not [n for n in dropped if hasattr(mod, n)]
+    assert names and [n for n in names
+                      if not hasattr(mod, n) and n not in dropped] == []
 
 
 def test_every_jax_module_has_a_counterpart():

@@ -1,7 +1,6 @@
 """The port's utilities against the JAX package's: the learning-rate
-schedules, the phase timers and the profiler hook, the debug aids
-(anomaly mode, gradient checks, the loss-spike guard), the array loader
-and the plotting and export helpers.
+schedules, the debug aids (anomaly mode, gradient checks, the loss-spike
+guard), the array loader and the plotting and export helpers.
 
 Tolerances, and why: the schedules within 1e-6 relative (f32 powers in
 another library); counts, batches, rollback decisions and exported files
@@ -20,12 +19,10 @@ from nextbestpath_tpu.utils import debugging as JD
 from nextbestpath_tpu.utils import fastloader as JF
 from nextbestpath_tpu.utils import plotting as JP
 from nextbestpath_tpu.utils import schedules as JS
-from nextbestpath_tpu.utils import timing as JT
 from nextbestpath_tpu_torch.utils import debugging as TD
 from nextbestpath_tpu_torch.utils import fastloader as TF
 from nextbestpath_tpu_torch.utils import plotting as TP
 from nextbestpath_tpu_torch.utils import schedules as TS
-from nextbestpath_tpu_torch.utils import timing as TT
 
 STEPS = [0, 1, 2, 10, 99, 100, 101, 4000, 123456]
 
@@ -45,40 +42,6 @@ def test_schedules_match_jax(name, args):
     want = np.asarray(j(jnp.asarray(STEPS)))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
-
-
-def test_phase_timers_and_time_check():
-    """The report's layout is the JAX timers'; ``block`` waits for the
-    device where there is one."""
-    t = TT.PhaseTimers()
-    for _ in range(3):
-        with t.phase("a", block=True):
-            torch.ones(10).sum()
-    with t.phase("b"):
-        pass
-    j = JT.PhaseTimers()
-    for _ in range(3):
-        with j.phase("a"):
-            pass
-    with j.phase("b"):
-        pass
-    rep = t.report()
-    assert sorted(rep) == sorted(j.report()) == ["a", "b"]
-    assert sorted(rep["a"]) == sorted(j.report()["a"])
-    assert t.counts["a"] == 3 and rep["a"]["mean_s"] >= 0.0
-    tc = TT.TimeCheck()
-    assert abs(tc.current_time()) < 1e-3
-    tc.start()
-    assert tc.current_time() >= 0.0
-
-
-def test_profiler_trace_writes_a_trace(tmp_path):
-    with TT.profiler_trace(None):
-        torch.ones(3).sum()
-    with TT.profiler_trace(str(tmp_path)):
-        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    files = os.listdir(tmp_path)
-    assert files and all(f.endswith(".json") for f in files)
 
 
 def test_anomaly_detection_raises_on_nan_backward():
