@@ -70,8 +70,9 @@ Phases, each of which raises on failure (exit code != 0):
    unchanged through the 7th micro step's forward and changed after it,
    the losses finite, cuDNN's TF32 off in the forward, the backward and
    the optimizer step and the caller's flags back after, with the ms of a
-   micro step (forward and backward) and of the optimizer step, steady
-   (a second epoch), and the peak memory; one accumulation cycle of
+   micro step (its loss and gradients, a CUDA graph replayed from its
+   second call on) and of the optimizer step, steady (a second epoch),
+   and the peak memory; one accumulation cycle of
    NBP(width=8) at 64x64 on the card against the CPU (f32: the losses and
    batch statistics, f64: the parameters, within rtol 1e-4); and
    ``run_training_nbp`` for 2 epochs of 8 poses on the main path's scene
@@ -84,7 +85,9 @@ Phases, each of which raises on failure (exit code != 0):
    planner kernels once a plan), then the same run eagerly, bit for bit;
    K3 on a padded GT cloud against its plain version, and the masked
    coverage on the card against the CPU, exactly; the bf16 training step at
-   full width (7 micro steps of 8) beside phase 8's f32 one; the driver for
+   full width (7 micro steps of 8) beside phase 8's f32 one, and its micro
+   step replayed as a CUDA graph equal to the eager step bit for bit
+   (loss, gradients, running statistics); the driver for
    3 epochs of 8 poses on two padded scenes with an eval scene, then a
    resume to a 4th (files, the stale shard deleted, the optimizer's steps
    carried on, the eval AUC logged); and a small collection on the card
@@ -1624,14 +1627,21 @@ def train_phase(params, assets, dev, smi):
 
     saved = []  # bytes the forward leaves allocated: the saved activations
 
-    def on_forward(*_):
+    def timed(m, d, idx, sw):
+        # The micro step's loss and gradients (from its second call on a
+        # graph replay, which runs no hook), between two events.
         mark("fwd")
         flags_seen.append(torch.backends.cudnn.allow_tf32)
         same.append(torch.equal(model.final1.weight, w0))
+        out = TT._loss_and_grads(m, d, idx, sw)
+        mark("fwd_end")
+        return out
+
+    def on_forward(*_):
+        flags_seen.append(torch.backends.cudnn.allow_tf32)
         saved.append(-torch.cuda.memory_allocated())
 
     def on_forward_end(*_):
-        mark("fwd_end")
         saved[-1] += torch.cuda.memory_allocated()
 
     def on_backward(_):
@@ -1658,7 +1668,8 @@ def train_phase(params, assets, dev, smi):
         for epoch in range(2):  # the second is the steady one, timed
             if epoch == 1:
                 marks.clear()
-            _, loss = TT.train_epoch_ds(state, ds, list(range(56)), random.Random(epoch))
+            _, loss = TT.train_epoch_ds(state, ds, list(range(56)), random.Random(epoch),
+                                        loss_and_grads=timed)
             losses.append(loss)
             if epoch == 0:
                 changed = not torch.equal(model.final1.weight, w0)
@@ -1679,9 +1690,9 @@ def train_phase(params, assets, dev, smi):
     fwd_ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
     opt_ms = opt_start.elapsed_time(opt_end)
     log(f"phase 8 training, full-width NBP, 256x256x5, 7 micro steps of 8 a step [{smi}]: "
-        f"{sum(micro_ms) / len(micro_ms):.2f} ms a micro step (forward + backward; "
-        f"{[round(m, 2) for m in micro_ms]}; forward {sum(fwd_ms) / len(fwd_ms):.2f}, the "
-        f"rest backward and accumulation), optimizer step {opt_ms:.2f} ms, peak memory "
+        f"{sum(micro_ms) / len(micro_ms):.2f} ms a micro step (loss, gradients and "
+        f"accumulation; {[round(m, 2) for m in micro_ms]}; the graph of the loss and "
+        f"gradients {sum(fwd_ms) / len(fwd_ms):.2f}), optimizer step {opt_ms:.2f} ms, peak memory "
         f"{peak:.2f} GiB (saved activations {max(saved) / 2 ** 30:.2f} GiB), mean losses "
         f"{losses}, optimizer steps "
         f"{int(state.optimizer.state[state.params[0]]['step'])}")
@@ -1754,9 +1765,9 @@ def train_phase(params, assets, dev, smi):
 
 def micro_step_times(state, ds, n, epochs=2):
     """Device ms of the micro steps of the last of ``epochs`` passes over
-    ``n`` staged entries (``train_epoch_ds``), from CUDA events at each
-    forward's start and end and at the optimizer step: (micro step ms,
-    forward ms, peak GiB)."""
+    ``n`` staged entries (``train_epoch_ds``), from CUDA events around
+    each micro step's loss and gradients (a graph replay) and at the
+    optimizer step: (micro step ms, loss and gradients ms, peak GiB)."""
     import random
 
     import torch
@@ -1769,16 +1780,20 @@ def micro_step_times(state, ds, n, epochs=2):
         ev.record()
         marks.append((tag, ev))
 
-    model = state.model
-    hooks = [model.register_forward_pre_hook(lambda *_: mark("fwd")),
-             model.register_forward_hook(lambda *_: mark("fwd_end")),
-             state.optimizer.register_step_pre_hook(lambda *_: mark("opt"))]
+    def timed(*args):
+        mark("fwd")
+        out = TT._loss_and_grads(*args)
+        mark("fwd_end")
+        return out
+
+    hooks = [state.optimizer.register_step_pre_hook(lambda *_: mark("opt"))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
         for epoch in range(epochs):
             marks.clear()
-            TT.train_epoch_ds(state, ds, list(range(n)), random.Random(epoch))
+            TT.train_epoch_ds(state, ds, list(range(n)), random.Random(epoch),
+                              loss_and_grads=timed)
         torch.cuda.synchronize()
     finally:
         for h in hooks:
@@ -1910,6 +1925,7 @@ def phase9_bf16_step(db, dev, smi, f32):
     of 8 and one AdamW step a pass, the second pass timed. Returns the ms
     of a micro step."""
     import torch
+    from nextbestpath_tpu_torch.device import cudnn_f32
     from nextbestpath_tpu_torch.eval.nbp_planning import seeded_nbp
     from nextbestpath_tpu_torch.train import train_nbp as TT
 
@@ -1919,9 +1935,26 @@ def phase9_bf16_step(db, dev, smi, f32):
     ds, _ = TT.build_device_dataset(data, dev)
     micro, fwd, peak = micro_step_times(state, ds, 56)
     steps = int(state.optimizer.state[state.params[0]]["step"])
+    # The captured micro step against the same step dispatched eagerly,
+    # from the same state: loss, gradients and running statistics.
+    snap = {k: v.clone() for k, v in tm.state_dict().items()}
+    idx, sw = next(TT._micro_chunks(list(range(8)), 8, device=dev))
+    outs = []
+    for fn in (TT._loss_and_grads, TT._eager_loss_and_grads):
+        tm.load_state_dict(snap)
+        with cudnn_f32():
+            loss, grads = fn(tm, ds, idx, sw)
+        outs.append([loss.clone()] + [g.clone() for g in grads]
+                    + [b.clone() for b in tm.buffers()])
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    log(f"phase 9 bf16 micro step replayed as a graph against eager, full width: "
+        f"bit for bit {same} (loss {float(outs[0][0])!r} / {float(outs[1][0])!r})")
+    if not same:
+        raise AssertionError("the graphed micro step differs from the eager one")
     log(f"phase 9 bf16 training step, full-width NBP, 256x256x5, micro batch 8 [{smi}]: "
-        f"{micro:.2f} ms a micro step, forward {fwd:.2f} ms, peak {peak:.2f} GiB; "
-        f"phase 8's f32 step {f32['micro_ms']:.2f} ms, forward {f32['fwd_ms']:.2f} ms, "
+        f"{micro:.2f} ms a micro step, loss and gradients {fwd:.2f} ms, peak {peak:.2f} GiB; "
+        f"phase 8's f32 step {f32['micro_ms']:.2f} ms, loss and gradients "
+        f"{f32['fwd_ms']:.2f} ms, "
         f"peak {f32['peak_gib']:.2f} GiB; optimizer steps {steps}")
     if steps != 2 or not all(p.dtype == torch.float32 for p in tm.parameters()):
         raise AssertionError("the bf16 step did not emit twice on f32 parameters")

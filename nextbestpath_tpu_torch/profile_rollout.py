@@ -44,10 +44,10 @@ eagerly, after a warm-up of each; its stages add ``model_input`` and
 ``chip_smoke.py`` phase 8 times): the main path's scene collected for 12
 poses with the full-width f32 NBP, 56 of its experiences staged, one
 accumulation cycle (7 micro steps of 8 and the AdamW step) as warm-up,
-then ``--poses`` cycles profiled; the ranges are the step's (forward,
-backward, accumulate, optimizer), with their host time only (autograd
-launches the backward's kernels from its own thread, outside them); the
-split of the device time is by operation.
+then ``--poses`` cycles profiled; the ranges are the step's (replay,
+the micro step's loss and gradients as one CUDA graph, then accumulate
+and optimizer), with their host time only; the split of the device time
+is by operation.
 
 ``--rollout dp [--ranks N]`` profiles the data-parallel micro step
 (``parallel/dp.py``, what ``chip_smoke.py`` phase 11 times) beside the
@@ -78,8 +78,8 @@ from .eval.scan_rollout import ScanRollout
 
 STAGES = tuple(dict.fromkeys((
     "coverage", "observe", "projections", "model_input", "gt_layout", "unet",
-    "plan", "move", "pre", "post", "forward", "backward", "accumulate",
-    "optimizer", "grad_all_reduce") + NBV_STAGES))
+    "plan", "move", "pre", "post", "forward", "backward", "capture",
+    "replay", "accumulate", "optimizer", "grad_all_reduce") + NBV_STAGES))
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
 

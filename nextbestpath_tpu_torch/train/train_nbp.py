@@ -19,6 +19,21 @@ under ``cudnn_f32``: autograd runs the backward
 convolutions after the forward has returned, so the U-Net's own guard
 does not cover them. The caller's TF32 flag is back after the step.
 
+On a card the micro step's gather, forward, loss and backward
+(``_loss_and_grads``) run as one CUDA graph, so that the host launches
+one graph where it dispatched every operation: a model's first call for
+a key (``_graph_key``: the device, the micro batch's shapes, the
+addresses of the staged dataset, the parameters and buffers, the modes
+and the TF32 flags) runs eagerly, its second captures the graph and
+replays it, later ones replay it; another key starts again. The replay
+does the eager step's kernels, so it gives the eager step's bits wherever
+two eager calls agree (bf16 on the H100; in f32 cuDNN's default
+algorithms vary in the last bits from one eager call to the next). Its
+gradients are the graph's buffers, valid until the next call,
+and hooks fire on the eager and capture calls only. The accumulation,
+AdamW and validation stay eager, queued behind the replays; the
+data-parallel step (``parallel/dp.py``) does not go through the graph.
+
 ``opt_state_to_flax`` and ``opt_state_from_flax`` map a ``TrainState`` to
 and from the state dict that flax writes for the JAX package's optimizer,
 ``optax.MultiSteps(optax.inject_hyperparams(optax.adamw))`` (optax 0.2.6,
@@ -41,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import random
 import sys
+import weakref
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -253,12 +269,10 @@ def _accumulate(state: TrainState, grads) -> None:
     state.mini_step = 0
 
 
-def _loss_and_grads(model: NBP, ds: Dataset, idx: torch.Tensor,
-                    sw: torch.Tensor
-                    ) -> Tuple[torch.Tensor, Sequence[torch.Tensor]]:
-    """The loss of the micro batch (idx, sw) gathered from the staged
-    dataset, in the model's current mode, and its gradients. Returns
-    (loss, gradients), the loss detached."""
+def _eager_loss_and_grads(model: NBP, ds: Dataset, idx: torch.Tensor,
+                          sw: torch.Tensor
+                          ) -> Tuple[torch.Tensor, Sequence[torch.Tensor]]:
+    """``_loss_and_grads`` dispatched op by op from the host."""
     with span("forward"):
         x, layout, pixels, gains, weights = _batch(ds, idx, sw)
         vm, om = model(x)
@@ -268,6 +282,111 @@ def _loss_and_grads(model: NBP, ds: Dataset, idx: torch.Tensor,
     with span("backward"):
         grads = torch.autograd.grad(loss, list(model.parameters()))
     return loss.detach(), grads
+
+
+def _graph_key(model: NBP, ds: Dataset, idx: torch.Tensor,
+               sw: torch.Tensor) -> Tuple:
+    """What a captured micro step's kernels depend on: the device, the
+    micro batch's shapes and dtypes, the address, shape, strides and dtype
+    of every dataset tensor, the address and dtype of every parameter and
+    buffer, each module's mode and the TF32 and cuDNN algorithm flags."""
+    return (idx.device, tuple(idx.shape), idx.dtype, tuple(sw.shape),
+            sw.dtype,
+            tuple((k, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                  for k, t in sorted(ds.items())),
+            tuple((t.data_ptr(), t.dtype) for t in model.parameters()),
+            tuple((t.data_ptr(), t.dtype) for t in model.buffers()),
+            tuple(m.training for m in model.modules()),
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.deterministic)
+
+
+class _MicroStepGraph:
+    """A model's micro step as one CUDA graph (``_loss_and_grads``): the
+    key it was captured for, the graph, its static inputs (idx, sw) and
+    outputs (loss, gradients), and the side stream of the eager first
+    call. Holds no reference to the model."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.key: Optional[Tuple] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static: Optional[Tuple] = None
+
+    def eager(self, key: Tuple, model: NBP, ds: Dataset, idx: torch.Tensor,
+              sw: torch.Tensor):
+        """A key's first call: drop any older graph and run the step
+        eagerly on the side stream, where cuDNN picks its algorithms and
+        the allocator warms before the capture."""
+        self.key, self.graph, self.static = key, None, None
+        here = torch.cuda.current_stream(idx.device)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            out = _eager_loss_and_grads(model, ds, idx, sw)
+        here.wait_stream(self.stream)
+        return out
+
+    def capture(self, model: NBP, ds: Dataset, idx: torch.Tensor,
+                sw: torch.Tensor) -> None:
+        """A key's second call: capture the step over static copies of
+        (idx, sw). A capture runs no kernel, so the BatchNorm statistics
+        move only at the replay that follows."""
+        with span("capture"):
+            s_idx, s_sw = idx.clone(), sw.clone()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                loss, grads = _eager_loss_and_grads(model, ds, s_idx, s_sw)
+            self.graph, self.static = graph, (s_idx, s_sw, loss, grads)
+        timing.count("graph_captures")
+
+    def replay(self, idx: torch.Tensor, sw: torch.Tensor):
+        s_idx, s_sw, loss, grads = self.static
+        with span("replay"):
+            s_idx.copy_(idx)
+            s_sw.copy_(sw)
+            self.graph.replay()
+        timing.count("graph_replays")
+        return loss.clone(), grads
+
+
+# The micro step's graph of each model on a card, dropped with the model.
+_GRAPHS: "weakref.WeakKeyDictionary[NBP, _MicroStepGraph]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _loss_and_grads(model: NBP, ds: Dataset, idx: torch.Tensor,
+                    sw: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Sequence[torch.Tensor]]:
+    """The loss of the micro batch (idx, sw) gathered from the staged
+    dataset, in the model's current mode, and its gradients. Returns
+    (loss, gradients), the loss detached and a tensor of its own.
+
+    On the CPU every call dispatches the step op by op. On a card the
+    step's gather, forward, loss and backward are one CUDA graph a model
+    (``_graph_key`` holds what its kernels depend on, the dataset's and
+    parameters' addresses among them): a key's first call runs eagerly,
+    its second captures the graph and replays it, and later calls copy
+    (idx, sw) into the graph's inputs and replay it; a new key (another
+    staged dataset, micro batch size or mode, a model moved or cast)
+    drops the graph and starts again. A replay does the eager step's
+    kernels in its order, so it gives the eager step's bits where the
+    kernels are deterministic (module docstring). The gradients are
+    then the graph's own buffers, valid until the next call: use them at
+    once. Module and tensor hooks fire only on the eager and capture
+    calls, and so do the spans ``forward`` and ``backward``."""
+    if idx.device.type != "cuda":
+        return _eager_loss_and_grads(model, ds, idx, sw)
+    key = _graph_key(model, ds, idx, sw)
+    g = _GRAPHS.get(model)
+    if g is None:
+        g = _GRAPHS[model] = _MicroStepGraph(idx.device)
+    if g.key != key:
+        return g.eager(key, model, ds, idx, sw)
+    if g.graph is None:
+        g.capture(model, ds, idx, sw)
+    return g.replay(idx, sw)
 
 
 # (model, ds, idx, sw) -> (loss, gradients) of a micro batch: one process's
@@ -355,7 +474,11 @@ def train_epoch_ds(state: TrainState, ds: Dataset, index_pool: List[int],
     """One shuffled pass over ``index_pool`` of the staged dataset; returns
     (state, mean micro-step loss). Leaves a run record
     (``utils/timing.py``) of kind ``pass``: the spans ``pass``,
-    ``shuffle``, ``chunk``, ``forward`` (holding ``batch``), ``backward``,
+    ``shuffle``, ``chunk``, ``forward`` (holding ``batch``) and
+    ``backward`` where the host dispatches the step (on the CPU, and on a
+    card a graph's eager and capture calls, ``capture`` holding the
+    latter), ``replay`` and the counters ``graph_captures`` and
+    ``graph_replays`` where a card replays it (``_loss_and_grads``),
     ``accumulate`` (holding ``optimizer``) and ``loss_read``, over its
     micro steps, AdamW steps and rows."""
     micro_steps = -(-len(index_pool) // micro_batch)

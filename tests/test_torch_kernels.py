@@ -759,14 +759,19 @@ def test_train_step_turns_tf32_off_on_card():
     """The training step on the card: forward, backward and the optimizer
     step run with cuDNN's TF32 off whatever the caller set, the caller's
     flags are back after each micro step, and the parameters move on the
-    k-th micro step only. One accumulation cycle in f64 equals the CPU's
-    within rtol 1e-4 (parameters and batch statistics)."""
+    k-th micro step only. The micro step is a CUDA graph from its second
+    call on, so the hooks fire on the eager and capture calls (the
+    forward's and the gradient's, twice each) and at the optimizer step;
+    the second and third calls replay. One accumulation cycle in f64
+    equals the CPU's within rtol 1e-4 (parameters and batch
+    statistics)."""
     _need_card()
     import random
 
     from nextbestpath_tpu_torch.models.unet import as_float64
     from nextbestpath_tpu_torch.train import train_nbp as TT
     from nextbestpath_tpu_torch.train.driver import seeded_train_model
+    from nextbestpath_tpu_torch.utils import timing
 
     data = _train_data(6, 64, 0)
     flags = (torch.backends.cudnn.allow_tf32,
@@ -785,13 +790,15 @@ def test_train_step_turns_tf32_off_on_card():
         st.optimizer.register_step_pre_hook(
             lambda *a: seen.append(torch.backends.cudnn.allow_tf32))
         w0 = model.final1.weight.detach().clone()
-        for i, (idx, sw) in enumerate(TT._micro_chunks(
-                list(range(6)), 2, device=torch.device("cuda"))):
-            TT._train_step_ds(st, ds, idx, sw)
-            assert torch.backends.cudnn.allow_tf32 is True
-            assert torch.backends.cuda.matmul.allow_tf32 is True
-            assert torch.equal(model.final1.weight, w0) == (i < 2)
-        assert len(seen) == 7 and not any(seen)
+        with timing.run("t") as rec:
+            for i, (idx, sw) in enumerate(TT._micro_chunks(
+                    list(range(6)), 2, device=torch.device("cuda"))):
+                TT._train_step_ds(st, ds, idx, sw)
+                assert torch.backends.cudnn.allow_tf32 is True
+                assert torch.backends.cuda.matmul.allow_tf32 is True
+                assert torch.equal(model.final1.weight, w0) == (i < 2)
+        assert len(seen) == 5 and not any(seen)
+        assert rec.counts == {"graph_captures": 1, "graph_replays": 2}
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
