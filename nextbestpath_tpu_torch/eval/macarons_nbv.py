@@ -33,6 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..assets.scene_assets import SceneAssets
 from ..config import Params, default_params
 from ..device import DeviceLike, resolve_device
@@ -50,7 +51,8 @@ from ..sim.proxy import ProxyField, carve_with_frame
 from ..sim.rollout import TrajectoryBuffer, move_and_capture
 from ..sim.sensor import PointBuffer, backproject_sample
 from ..sim.tables import build_scene_tables
-from ..utils.timing import span
+from ..utils import timing
+from ..utils.timing import count, span
 from .nbp_planning import RolloutResult
 
 ROT_SHIFTS = (-2, -1, 0, 1, 2)
@@ -156,6 +158,7 @@ def macarons_nbv_rollout(
     n_poses: int = 100, seed: int = 8,
     n_tokens: int = 1024,
     n_proxy_tokens: int = 1024,
+    vis_tokens: Optional[int] = None,
     oracle: bool = False,
     verbose: bool = False,
     draws=None,
@@ -164,7 +167,15 @@ def macarons_nbv_rollout(
     """The greedy NBV rollout (module docstring). ``oracle=True`` swaps
     the learned gain for the GT gain (pass None for the models). draws: a
     provider in the sequential schedule (default ``TorchDraws(seed)`` on
-    the device)."""
+    the device). ``vis_tokens``: the tokens of each candidate's SconeVis
+    call; None takes ``min(params.seq_len, 1024)``, the JAX package's cap.
+
+    The pose loop runs inside a run record of kind ``nbv`` (units
+    ``poses`` and ``candidates``, the valid candidates summed over the
+    poses) with the counters ``vis_tokens`` (tokens through SconeVis),
+    ``occ_queries`` (proxy queries through SconeOcc), ``host_reads`` (the
+    coverage and the argmax, two a pose) and ``launches`` (the loop's
+    change of ``kernels.LAUNCHES``)."""
     dev = resolve_device(device)
     p = params or default_params()
     draws = draws if draws is not None else TorchDraws(seed, dev)
@@ -210,7 +221,8 @@ def macarons_nbv_rollout(
                               sx_min, sx_max, n_elev_vs, n_azim_vs)
     box_center = (sx_min + sx_max) / 2.0
     box_diag = torch.linalg.norm(sx_max - sx_min)
-    seq_len = min(int(p.seq_len), 1024)
+    seq_len = (min(int(p.seq_len), 1024) if vis_tokens is None
+               else int(vis_tokens))
     min_occ = float(p.get("min_occ_for_proxy_points", 0.1))
     elev2 = float(assets.elevations_deg[2])
 
@@ -245,76 +257,88 @@ def macarons_nbv_rollout(
                                  n_azim=n_azim, **cap_kw)[2]
 
     coverage_evolution: List[float] = []
-    for pose_i in range(n_poses):
-        with span("coverage"):
-            scores = draws.uniform(group("cov"), (pc.capacity,))
-            cov = float(coverage_percentage_exact(gt, pc.points, pc.count,
-                                                  scores))
-        coverage_evolution.append(cov)
-        if verbose and pose_i % 10 == 0:
-            print(f"nbv pose {pose_i}: coverage {cov:.4f}")
+    launches0 = sum(kernels.LAUNCHES.values())
+    with timing.run("nbv", poses=n_poses, candidates=0) as rec:
+        for pose_i in range(n_poses):
+            with span("coverage"):
+                scores = draws.uniform(group("cov"), (pc.capacity,))
+                cov = float(coverage_percentage_exact(gt, pc.points,
+                                                      pc.count, scores))
+                count("host_reads")
+            coverage_evolution.append(cov)
+            if verbose and pose_i % 10 == 0:
+                print(f"nbv pose {pose_i}: coverage {cov:.4f}")
 
-        cur_pose = pose5(cur)
-        # The last move's final frame is the current pose's frame.
-        R, T = get_camera_RT(cur_pose[None, :3], cur_pose[None, 3:])
-        R, T = R[0], T[0]
-        if not oracle:
-            with span("carve"):
-                proxy = carve_with_frame(
-                    proxy, last_zbuf, R, T, cur_pose[:3], intr,
-                    score_threshold=float(p.score_threshold),
-                    carving_tolerance=float(p.carving_tolerance),
-                    n_elev=n_elev_vs, n_azim=n_azim_vs,
-                    sensor_range=float(p.sensor_range))
-            with span("occupancy"):
-                group("tokens")
-                pc_tokens = _sample_tokens(draws, pc.points, pc.count,
-                                           n_tokens)
-                vs_idx = draws.randint(group("vs_idx"), 0, n_proxy,
-                                       shape=(n_proxy_tokens,))
-                vh = compute_view_harmonics(proxy.view_states[None, vs_idx],
-                                            base_h, h_polar, n_elev_vs,
-                                            n_azim_vs)
-                occ = scone_occ(((pc_tokens - box_center) / box_diag)[None],
-                                ((proxy.points[vs_idx] - box_center)
-                                 / box_diag)[None],
-                                vh, draws=draws, role=group("occ"))
-                _write_last(proxy.proba, vs_idx, occ[0])
+            cur_pose = pose5(cur)
+            # The last move's final frame is the current pose's frame.
+            R, T = get_camera_RT(cur_pose[None, :3], cur_pose[None, 3:])
+            R, T = R[0], T[0]
+            if not oracle:
+                with span("carve"):
+                    proxy = carve_with_frame(
+                        proxy, last_zbuf, R, T, cur_pose[:3], intr,
+                        score_threshold=float(p.score_threshold),
+                        carving_tolerance=float(p.carving_tolerance),
+                        n_elev=n_elev_vs, n_azim=n_azim_vs,
+                        sensor_range=float(p.sensor_range))
+                with span("occupancy"):
+                    group("tokens")
+                    pc_tokens = _sample_tokens(draws, pc.points, pc.count,
+                                               n_tokens)
+                    vs_idx = draws.randint(group("vs_idx"), 0, n_proxy,
+                                           shape=(n_proxy_tokens,))
+                    vh = compute_view_harmonics(
+                        proxy.view_states[None, vs_idx], base_h, h_polar,
+                        n_elev_vs, n_azim_vs)
+                    occ = scone_occ(
+                        ((pc_tokens - box_center) / box_diag)[None],
+                        ((proxy.points[vs_idx] - box_center)
+                         / box_diag)[None],
+                        vh, draws=draws, role=group("occ"))
+                    _write_last(proxy.proba, vs_idx, occ[0])
+                    count("occ_queries", n_proxy_tokens)
 
-        cands, cand_valid = neighbour_candidates(cur, blocked, L, H, n_azim)
-        if not cand_valid.any():
-            rot = int(draws.randint(group("rot"), 0, n_azim))
-            cands[0] = (cur[0], cur[1], rot)
-            cand_valid[0] = True
-        cand_pose5 = torch.from_numpy(
-            np.stack([pose5_np(c) for c in cands])).to(dev)
-        if oracle:
-            with span("oracle"):
-                covered_now = min_dists(gt, pc.points, pc.valid_mask(),
-                                        s_count=pc.count) < 1.0
-                role = group("oracle")
-                scores = draws.uniforms(role, [(n_px,)] * C_MAX)
-                gains = _oracle_gains(tri_soa, n_tris, cand_pose5, gt,
-                                      covered_now, scores, intr, **cap_kw)
-        else:
-            with span("gumbel"):
-                role = group("gain")
-                noise = draws.gumbels(role, [(seq_len, n_proxy)] * C_MAX)
-            with span("gains"):
-                all_vh = compute_view_harmonics(proxy.view_states[None],
-                                                base_h, h_polar, n_elev_vs,
-                                                n_azim_vs)[0]
-                gains = predict_coverage_gain(
-                    noise, scone_vis, proxy.points, proxy.proba, all_vh,
-                    cand_pose5, intr, sx_min, sx_max,
-                    sensor_range=float(p.sensor_range), min_occ=min_occ)
-            del noise
-        gains = torch.where(torch.from_numpy(cand_valid).to(dev), gains,
-                            torch.full_like(gains, -float("inf")))
-        nxt = cands[int(torch.argmax(gains))]
-        with span("move"):
-            last_zbuf = move(cur_pose, pose5(nxt))
-        cur = nxt
+            cands, cand_valid = neighbour_candidates(cur, blocked, L, H,
+                                                     n_azim)
+            if not cand_valid.any():
+                rot = int(draws.randint(group("rot"), 0, n_azim))
+                cands[0] = (cur[0], cur[1], rot)
+                cand_valid[0] = True
+            rec.units["candidates"] += int(cand_valid.sum())
+            cand_pose5 = torch.from_numpy(
+                np.stack([pose5_np(c) for c in cands])).to(dev)
+            if oracle:
+                with span("oracle"):
+                    covered_now = min_dists(gt, pc.points, pc.valid_mask(),
+                                            s_count=pc.count) < 1.0
+                    role = group("oracle")
+                    scores = draws.uniforms(role, [(n_px,)] * C_MAX)
+                    gains = _oracle_gains(tri_soa, n_tris, cand_pose5, gt,
+                                          covered_now, scores, intr,
+                                          **cap_kw)
+            else:
+                with span("gumbel"):
+                    role = group("gain")
+                    noise = draws.gumbels(role,
+                                          [(seq_len, n_proxy)] * C_MAX)
+                with span("gains"):
+                    all_vh = compute_view_harmonics(
+                        proxy.view_states[None], base_h, h_polar, n_elev_vs,
+                        n_azim_vs)[0]
+                    gains = predict_coverage_gain(
+                        noise, scone_vis, proxy.points, proxy.proba, all_vh,
+                        cand_pose5, intr, sx_min, sx_max,
+                        sensor_range=float(p.sensor_range), min_occ=min_occ)
+                count("vis_tokens", C_MAX * seq_len)
+                del noise
+            gains = torch.where(torch.from_numpy(cand_valid).to(dev), gains,
+                                torch.full_like(gains, -float("inf")))
+            nxt = cands[int(torch.argmax(gains))]
+            count("host_reads")
+            with span("move"):
+                last_zbuf = move(cur_pose, pose5(nxt))
+            cur = nxt
+        count("launches", sum(kernels.LAUNCHES.values()) - launches0)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
