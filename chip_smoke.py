@@ -239,6 +239,19 @@ Phases, each of which raises on failure (exit code != 0):
    depth checkpoint that the phase writes, one trial, the plain and
    textured errors equal (procgen faces are one grey).
 
+17. the Gumbel-max token draw's kernels (``csrc/gumbel.cu``): (a) G1
+   (``kernels.gumbel_noise``) against the eager chain (``torch.rand``,
+   ``clamp``, ``log``, ``neg``, ``log``, ``neg``) on two generators of one
+   state, bit for bit, at (4,), the NBV cell's 20 x (2048, 20000) in one
+   launch, (1024, 20000) and two odd shapes, and a ``torch.rand`` after
+   both equal; (b) G2 (``kernels.gumbel_argmax``) on a seeded field of
+   20,000 proxy points and 20 candidates, four of them blind, and on an
+   all-masked one: its tokens equal ``torch.argmax(noise + logits)`` of
+   the batched log-probabilities, and ``sample_proxy_points``'s (a token
+   apart only where the two scores lie within f32 rounding); (c) both
+   timed at the cell's shapes against their bound (the noise's bytes once)
+   and the eager versions they replace.
+
 Phase 3 also holds the scene-axis launches (K1, K3 and the planner
 kernels over B scenes, one count, lattice, start or goal a scene) against
 their plain versions and against stacked single-scene launches, bit for
@@ -254,11 +267,11 @@ are more; the all-pairs operations the TPU kernel does are
 The line before the last lists the kernels as JSON; the last line is the
 device JSON. Imports nothing of JAX and reads nothing that git ignores.
 
-    python3 chip_smoke.py --phase 14    (or 15, 16)
+    python3 chip_smoke.py --phase 14    (or 15, 16, 17)
 
-runs phases 1, 2 and 14 (the pretrainers), 15 (the quality tools) or 16
-(the research probes) alone, a quick check; it prints no kernels or
-device JSON.
+runs phases 1, 2 and 14 (the pretrainers), 15 (the quality tools), 16
+(the research probes) or 17 (the Gumbel draw's kernels) alone, a quick
+check; it prints no kernels or device JSON.
 
     python3 chip_smoke.py --against DIR
 
@@ -759,7 +772,9 @@ def macarons_train_phase(params, assets, dev, smi):
     def launches_for(n):
         # K2 the scene tables; K1 the first move, then a pose's frame, its
         # move's four frames (one launch) and the arrival frame; K3 the metric.
-        return dict(zero, ray_hits=1, ray_hits_pinhole=1 + 3 * n, min_sq_dists=n)
+        # G1 the proxy tokens' noise.
+        return dict(zero, ray_hits=1, ray_hits_pinhole=1 + 3 * n, min_sq_dists=n,
+                    gumbel_noise=n)
 
     def lap(label, t0):
         log(f"phase 13({label}) wall time {time.perf_counter() - t0:.1f} s")
@@ -998,8 +1013,10 @@ def pretrain_phase(dev, smi):
             f"{[round(e['err'], 4) for e in log_a['eval_err']]}, launches {la}")
         finite("phase 14(a) losses", losses, n_steps)
         finite("phase 14(a) held-out errors", [e["err"] for e in log_a["eval_err"]], 2)
+        # A sample's walk: K1 its three frames, G1 its cell and two moves.
         expect_launches("phase 14(a)", la, dict(zero, ray_hits=len(scenes) + 1,
-                                                ray_hits_pinhole=3 * batch * (n_steps + 1)))
+                                                ray_hits_pinhole=3 * batch * (n_steps + 1),
+                                                gumbel_noise=3 * batch * (n_steps + 1)))
         for name in ("depth_pre_best.ckpt", "depth_pre_latest.ckpt"):
             back = ManyDepth(CameraIntrinsics(H, W)).to(dev)
             load_depth_checkpoint(os.path.join(tmp, name), back)
@@ -1862,7 +1879,8 @@ def phase9_collection(params, assets, dev, smi, f32):
         f"launches: construction and warm-up {setup}, run {run_l}")
     rises("scan collection", [float(c) for c in out.coverage])
     want = dict(dict.fromkeys(kernels.LAUNCHES, 0), ray_hits_pinhole=1 + 2 * n_poses,
-                min_sq_dists=n_poses, bfs_field=plans, extract_path=plans)
+                min_sq_dists=n_poses, bfs_field=plans, extract_path=plans,
+                gumbel_noise=n_poses)
     if (run_l != want or setup["ray_hits"] != 1 or plans < 1 or reads != n_poses
             or replays != {"pre": n_poses, "plan": plans, "post": n_poses}
             or not out.valid.all()):
@@ -2385,7 +2403,7 @@ def multi_scene_phase(params, small, dev, smi):
         rises(f"walk scene {i}", r.coverage_evolution)
     if (not same or reads != 0 or replays != {"pose": n_poses}
             or w_run != dict(zero, ray_hits_pinhole_scenes=n_poses + 1,
-                             min_sq_dists_scenes=n_poses)):
+                             min_sq_dists_scenes=n_poses, gumbel_noise=B * n_poses)):
         raise AssertionError(f"ScanRandomWalk: launches {w_run}, reads {reads}")
     del batch, singles, walk
     torch.cuda.empty_cache()
@@ -2538,7 +2556,8 @@ def nbv_phase(params, assets, dev, smi, against=None):
         f"{[round(c, 4) for c in cov]}, points {res.n_points}, launches {nbv_l}")
     rises("phase 12(a) learned NBV", cov)
     expect_launches("phase 12(a)", nbv_l, dict(zero, ray_hits=1, ray_hits_pinhole=1 + n_poses,
-                                               min_sq_dists=n_poses))
+                                               min_sq_dists=n_poses, gumbel_noise=n_poses,
+                                               gumbel_argmax=n_poses))
     stage, prof_ms = nbv_stage_ms(lambda: nbv(3), 3)
     log(f"phase 12(a) learned NBV device ms a pose by stage (3 poses profiled, {prof_ms:.2f} "
         f"ms a pose under the profiler, scene tables included) [{smi}]: "
@@ -2623,6 +2642,126 @@ def nbv_phase(params, assets, dev, smi, against=None):
     nbv_kernel_checks(params, assets, obj, res.n_points, dev, smi, against)
     log(f"phase 12 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
     return {"nbv": nbv_l, "nbv_oracle": or_l, "object_nbv": obj_l}
+
+
+def gumbel_phase(params, assets, dev, smi):
+    """Phase 17 (module docstring). Returns the kernels' rows G1 and G2."""
+    import torch
+    from nextbestpath_tpu_torch import kernels
+    from nextbestpath_tpu_torch.draws import TorchDraws
+    from nextbestpath_tpu_torch.eval.macarons_nbv import C_MAX
+    from nextbestpath_tpu_torch.geometry.cameras import (CameraIntrinsics, get_camera_RT,
+                                                         points_in_fov_mask)
+    from nextbestpath_tpu_torch.sim.coverage_gain import (candidate_logits,
+                                                          sample_proxy_points)
+
+    t_phase = time.perf_counter()
+    tiny = torch.finfo(torch.float32).tiny
+    n_proxy, n_tok = int(params.n_proxy_points), 2048
+
+    def eager(gen, shape):
+        u = torch.rand(shape, generator=gen, device=dev).clamp(min=tiny)
+        return -torch.log(-torch.log(u))
+
+    # (a) G1 against the eager chain, on two generators of one state.
+    for label, shapes in (("(4,)", [(4,)]), (f"{C_MAX} x (2048, {n_proxy})",
+                                            [(n_tok, n_proxy)] * C_MAX),
+                          (f"(1024, {n_proxy})", [(1024, n_proxy)]),
+                          ("(3, 12345) and (1, 7)", [(3, 12345), (1, 7)])):
+        gen = torch.Generator(device=dev).manual_seed(2 ** 40 + 25)
+        ref = torch.Generator(device=dev)
+        ref.set_state(gen.get_state())
+        got = kernels.gumbel_noise(gen, shapes)
+        bad = 0
+        for g in got:
+            bad += int((g != eager(ref, g.shape)).sum())
+        after = torch.equal(torch.rand(4096, generator=gen, device=dev),
+                            torch.rand(4096, generator=ref, device=dev))
+        log(f"phase 17(a) G1 gumbel_noise {label}, one launch: elements unequal to the eager "
+            f"chain {bad}, the stream after it equal {after}")
+        if bad or not after:
+            raise AssertionError(f"phase 17(a): G1 differs from the eager chain at {label}")
+        del got
+
+    # (b) G2 against the plain draw on seeded fields: proxy points in the
+    # scene's box, candidates inside it, the last four far outside (no
+    # point in view); then every candidate masked out (uniform draws).
+    intr = CameraIntrinsics(int(params.image_height), int(params.image_width),
+                            float(params.fov_degrees), float(params.camera_znear),
+                            float(params.zfar))
+    g = torch.Generator(device=dev).manual_seed(17)
+    lo = torch.tensor(assets.settings.scene.x_min, dtype=torch.float32, device=dev)
+    hi = torch.tensor(assets.settings.scene.x_max, dtype=torch.float32, device=dev)
+    pts = lo + (hi - lo) * torch.rand((n_proxy, 3), generator=g, device=dev)
+    occ = torch.rand((n_proxy, 1), generator=g, device=dev)
+    pose5 = torch.cat([lo + (hi - lo) * torch.rand((C_MAX, 3), generator=g, device=dev),
+                       torch.zeros((C_MAX, 1), device=dev),
+                       360.0 * torch.rand((C_MAX, 1), generator=g, device=dev)], dim=1)
+    pose5[-4:, 0] += 1000.0
+    R, T = get_camera_RT(pose5[:, :3], pose5[:, 3:])
+    in_fov = points_in_fov_mask(pts[None], R[:, None], T[:, None], intr,
+                                fov_range=float(params.sensor_range))
+    noise = TorchDraws(5, dev).gumbels("gain", [(n_tok, n_proxy)] * C_MAX)
+    for label, masks in (("seeded field", in_fov),
+                         ("all masked", torch.zeros_like(in_fov))):
+        logits = candidate_logits(occ, masks, 0.1)
+        got = kernels.gumbel_argmax(noise, logits)
+        off_argmax = off_plain = ties = 0
+        gap = 0.0
+        for c in range(C_MAX):
+            off_argmax += int((got[c] != torch.argmax(noise[c] + logits[c], dim=-1)).sum())
+            plain = sample_proxy_points(noise[c], occ, masks[c], 0.1)
+            diff = torch.nonzero(got[c] != plain).flatten()
+            off_plain += int(diff.numel())
+            if diff.numel():
+                # The plain draw's own scores of both tokens (f64 sums of
+                # its f32 log-probabilities).
+                w = torch.where((occ[:, 0] > 0.1) & masks[c], occ[:, 0], 0.0)
+                lp = torch.log(torch.clamp(w / torch.clamp(w.sum(), min=1e-12), min=1e-12))
+                rows = noise[c][diff].double() + lp.double()[None]
+                d = (rows.gather(1, plain[diff, None]) - rows.gather(1, got[c][diff, None]))
+                gap = max(gap, float(d.abs().max()))
+                ties += int(diff.numel())
+        seen = int(masks.any(dim=1).sum())
+        log(f"phase 17(b) G2 gumbel_argmax, {label} ({seen} of {C_MAX} candidates see a "
+            f"point), {C_MAX} x {n_tok} tokens over {n_proxy} points: tokens unequal to "
+            f"torch.argmax(noise + logits) {off_argmax}, to sample_proxy_points {off_plain} "
+            f"(their scores {gap:.3g} apart)")
+        if off_argmax or (off_plain and gap > 1e-5):
+            raise AssertionError(f"phase 17(b): G2's tokens differ on the {label}")
+    if not 0 < int(in_fov.any(dim=1).sum()) < C_MAX:
+        raise AssertionError("phase 17(b): the seeded field should leave some candidates blind")
+
+    # (c) Times at the NBV cell's shapes, against the bound (the noise's
+    # bytes written once, read once) and the eager chain they replace.
+    shapes = [(n_tok, n_proxy)] * C_MAX
+    n_el = C_MAX * n_tok * n_proxy
+    draws = TorchDraws(9, dev)
+    g1_ms = kernels.device_ms(lambda: draws.gumbels("gain", shapes), reps=5)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    g1_plain = kernels.device_ms(lambda: [eager(gen, s) for s in shapes], reps=3)
+    logits = candidate_logits(occ, in_fov, 0.1)
+    g2_ms = kernels.device_ms(lambda: kernels.gumbel_argmax(noise, logits), reps=10)
+    g2_plain = kernels.device_ms(lambda: torch.stack([
+        sample_proxy_points(noise[c], occ, in_fov[c], 0.1) for c in range(C_MAX)]), reps=3)
+    # G1 also takes two logarithms an element at the SFU rate (16 a clock
+    # an SM, 132 SMs at 1.98 GHz); below its bytes at these shapes.
+    sfu_ms = 2 * n_el / (16 * 132 * 1.98e9) * 1e3
+    g1_bound = bound_ms(4 * n_el, 0)
+    g2_bound = bound_ms(4 * n_el + 4 * C_MAX * n_proxy + 8 * C_MAX * n_tok, 0)
+    log(f"phase 17(c) G1 {C_MAX} x (2048 x {n_proxy}) [{smi}]: {g1_ms:.4f} ms (eager chain "
+        f"{g1_plain:.3f} ms), bound {g1_bound[0]:.4f} ms by bytes (logarithms at the SFU "
+        f"rate {sfu_ms:.4f} ms); G2: {g2_ms:.4f} ms (plain, a candidate at a time "
+        f"{g2_plain:.3f} ms), bound {g2_bound[0]:.4f} ms by bytes")
+    log(f"phase 17 wall time {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    row = dict(route="cuda", source="nextbestpath_tpu_torch/csrc/gumbel.cu",
+               replaces="none (jax.random.categorical in nextbestpath_tpu/sim/"
+                        "coverage_gain.py sample_proxy_points, fused by XLA)",
+               launches=0, max_abs_err=0.0)
+    return [dict(row, name="gumbel_noise", launches_by_path={}, ms=g1_ms,
+                 plain_ms=g1_plain, bound_ms=g1_bound[0], bound_by=g1_bound[1]),
+            dict(row, name="gumbel_argmax", launches_by_path={}, ms=g2_ms,
+                 plain_ms=g2_plain, bound_ms=g2_bound[0], bound_by=g2_bound[1])]
 
 
 def nbv_kernel_checks(params, assets, obj, n_points, dev, smi, against=None):
@@ -3271,7 +3410,7 @@ def main() -> int:
     ap.add_argument("--against", default=None,
                     help="another checkout whose K2 and planner kernels to time at "
                          "phase 3's shapes")
-    ap.add_argument("--phase", type=int, choices=[14, 15, 16], default=None,
+    ap.add_argument("--phase", type=int, choices=[14, 15, 16, 17], default=None,
                     help="run phases 1, 2 and this one alone (no result line)")
     args = ap.parse_args()
     # The smoke runs on one card: expose only the first visible one (phase
@@ -3330,6 +3469,11 @@ def main() -> int:
         return 0
     if args.phase == 16:
         probes_phase(dev, smi)
+        return 0
+    if args.phase == 17:
+        g_params = default_params()
+        gumbel_phase(g_params, pack_generated_scene(
+            generate_scene("simple", seed=MAIN_PATH_SEED), params=g_params), dev, smi)
         return 0
 
     # 3. Kernels against their plain versions at the main path's shapes.
@@ -3553,8 +3697,9 @@ def main() -> int:
     # held against the first.
     rises("rollout", cov)
     for name, k in launches.items():
-        # The scene-axis launchers run on phase 10's path, not this one.
-        if k <= 0 and not name.endswith("_scenes"):
+        # The scene-axis launchers run on phase 10's path, the Gumbel draw's
+        # on the NBV's (phase 12), not this one.
+        if k <= 0 and not name.endswith("_scenes") and not name.startswith("gumbel_"):
             raise AssertionError(f"kernel {name} was not launched on the main path")
     want_launches = {"ray_hits_pinhole": 1 + 2 * n_poses, "ray_hits": 1,
                      "min_sq_dists": n_poses}
@@ -3671,6 +3816,8 @@ def main() -> int:
     # value_flat ablation, a collection branched from a mid-state, and
     # the three ManyDepth probes.
     by_path.update(probes_phase(dev, smi))
+    # 17. The Gumbel-max token draw's kernels G1 and G2: bits, tokens, times.
+    rows += gumbel_phase(params, assets, dev, smi)
     for r in rows:
         for path, counts in by_path.items():
             r["launches_by_path"][path] = counts[r["name"]]

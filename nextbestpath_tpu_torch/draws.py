@@ -96,6 +96,12 @@ In both schedules ``step`` folds a substep's index into its group's key
 of one key (``k1, k2 = split(key)``, the stratified frame draw); an entry
 of its shapes that is itself a list takes that half of the split and
 splits it again.
+
+``TorchDraws`` makes Gumbel noise with a generator on a card in one launch
+of the hand-written kernel G1 (``kernels.gumbel_noise``) for all the shapes
+of a ``gumbel`` or ``gumbels`` call: the bits, and the generator's state
+after, of ``torch.rand``, ``clamp``, ``log``, ``neg``, ``log``, ``neg``
+shape after shape, which a generator on the CPU still runs.
 """
 
 from __future__ import annotations
@@ -103,6 +109,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
+
+from . import kernels
 
 IntLike = Union[int, torch.Tensor]
 
@@ -145,7 +153,7 @@ class TorchDraws:
     def gumbels(self, role: str, shapes: Sequence[Sequence[int]],
                 step: Optional[int] = None) -> List[torch.Tensor]:
         """Gumbel noise of each shape, from the split of one key."""
-        return [self.gumbel(role, s, step) for s in shapes]
+        return self._gumbels(role, shapes, step)
 
     def permutation(self, role: str, n: int,
                     step: Optional[int] = None) -> torch.Tensor:
@@ -158,9 +166,18 @@ class TorchDraws:
                step: Optional[int] = None) -> torch.Tensor:
         """Standard Gumbel noise -log(-log(u)), u uniform in [tiny, 1),
         as ``jax.random.gumbel`` draws it."""
+        return self._gumbels(role, [shape], step)[0]
+
+    def _gumbels(self, role: str, shapes: Sequence[Sequence[int]],
+                 step: Optional[int]) -> List[torch.Tensor]:
+        """Gumbel noise of each shape in turn from the stream: one G1
+        launch with a generator on a card, else the eager chain."""
+        if self.gen_device.type == "cuda":
+            return [g.to(self.device)
+                    for g in kernels.gumbel_noise(self.gen, shapes)]
         tiny = torch.finfo(torch.float32).tiny
-        u = self.uniform(role, shape, step).clamp(min=tiny)
-        return -torch.log(-torch.log(u))
+        return [-torch.log(-torch.log(
+            self.uniform(role, s, step).clamp(min=tiny))) for s in shapes]
 
     def randint(self, role: str, low: IntLike, high: IntLike,
                 step: Optional[int] = None,

@@ -174,8 +174,11 @@ def macarons_nbv_rollout(
     ``poses`` and ``candidates``, the valid candidates summed over the
     poses) with the counters ``vis_tokens`` (tokens through SconeVis),
     ``occ_queries`` (proxy queries through SconeOcc), ``host_reads`` (the
-    coverage and the argmax, two a pose) and ``launches`` (the loop's
-    change of ``kernels.LAUNCHES``)."""
+    coverage and the argmax, two a pose), ``launches`` (the loop's
+    change of ``kernels.LAUNCHES``), and from ``predict_coverage_gain``
+    ``token_draws`` (the candidates whose tokens were drawn, C a learned
+    pose) and ``kernel_draws`` (those drawn by the kernel G2, on a
+    card)."""
     dev = resolve_device(device)
     p = params or default_params()
     draws = draws if draws is not None else TorchDraws(seed, dev)

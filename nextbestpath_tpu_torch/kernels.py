@@ -15,6 +15,12 @@ K1, K3 and the planner kernels also launch with a leading scene axis (the
 ``*_scenes`` launchers, counted apart): the batched rollouts' one launch for
 B scenes, each with its own triangle count, sample count, lattice, start or
 goal, where the JAX package vmaps the single-scene kernel.
+
+The Gumbel-max token draw (``csrc/gumbel.cu``) has two launchers:
+``gumbel_noise`` (G1) serves Gumbel noise from a CUDA generator, the bits of
+``torch.rand``'s stream and the eager chain's transform, and
+``gumbel_argmax`` (G2) takes every candidate's tokens from its served noise
+and log-probabilities.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,7 +48,8 @@ LAUNCHES: Dict[str, int] = {"ray_hits_pinhole": 0, "ray_hits": 0,
                             "extract_path": 0, "ray_hits_pinhole_scenes": 0,
                             "min_sq_dists_scenes": 0,
                             "bfs_field_scenes": 0,
-                            "extract_path_scenes": 0}
+                            "extract_path_scenes": 0, "gumbel_noise": 0,
+                            "gumbel_argmax": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -61,6 +68,8 @@ _SIGNATURES = {
     "nbp_bfs_field": [_P, _P, _P, _I, _I, _I, _P, _P],
     "nbp_extract_path": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "nbp_plan_limits": [_P],
+    "nbp_gumbel_noise": [_P, _P, _P, _P, _I, ctypes.c_uint64, _P],
+    "nbp_gumbel_argmax": [_P, _I, _P, _I, _I, _I, _P, _P],
 }
 _NO_RESULT = ("nbp_plan_limits",)
 
@@ -490,6 +499,133 @@ def extract_path_scenes(dist: torch.Tensor, blocked: torch.Tensor,
     _check(goal, "goal", torch.int64, (n_b, 2))
     out = _path_launch(dist, blocked, goal, max_len, skip)
     LAUNCHES["extract_path_scenes"] += 1
+    return out
+
+
+# torch.rand's launch on a card (ATen/native/cuda/DistributionTemplates.h,
+# calc_execution_policy): 256-thread blocks, curand_uniform4's four floats a
+# trip of the grid-stride loop and four Philox counters a trip.
+RAND_THREADS = 256
+RAND_UNROLL = 4
+# The most f32 elements torch.rand fills in one launch: past 2^29 the byte
+# offsets leave 32 bits and it splits the tensor, each part advancing the
+# generator again.
+GUMBEL_MAX_ELEMENTS = 2 ** 29
+# As csrc/gumbel.cu holds them: shapes of one G1 launch, candidates of one G2
+# launch, and the logits a G2 block stages in shared memory (224 KB).
+GUMBEL_SHAPES_A_LAUNCH = 64
+ARGMAX_CANDS_A_LAUNCH = 64
+ARGMAX_MAX_P = 57344
+
+
+def rand_policy(n: int, sm_count: int, threads_per_sm: int
+                ) -> Tuple[int, int]:
+    """torch.rand's launch for n > 0 f32 elements on a card of sm_count
+    SMs and threads_per_sm threads an SM: (the grid's blocks, the Philox
+    counters the call advances its generator by)."""
+    blocks = min(sm_count * (threads_per_sm // RAND_THREADS),
+                 -(-n // RAND_THREADS))
+    trips = (n - 1) // (RAND_THREADS * blocks * RAND_UNROLL) + 1
+    return blocks, trips * RAND_UNROLL
+
+
+def gumbel_noise(gen: torch.Generator, shapes: Sequence[Sequence[int]]
+                 ) -> List[torch.Tensor]:
+    """G1 launch: standard Gumbel noise of each shape, f32 on the
+    generator's card, bit-equal to ``-log(-log(torch.rand(shape,
+    generator=gen).clamp(min=tiny)))`` for the shapes in turn; the
+    generator is left where those ``torch.rand`` calls leave it. Up to
+    ``GUMBEL_SHAPES_A_LAUNCH`` shapes a launch. Refuses a generator off the
+    card, a shape of more than ``GUMBEL_MAX_ELEMENTS`` elements, and a call
+    under stream capture (the generator's offset moves on the host)."""
+    dev = torch.device(getattr(gen, "device", "cpu"))
+    if dev.type != "cuda":
+        raise ValueError(f"gumbel_noise takes a CUDA generator, got one on "
+                         f"{dev}")
+    shapes = [tuple(int(d) for d in s) for s in shapes]
+    for s in shapes:
+        n = 1
+        for d in s:
+            n *= d
+        if min(s, default=0) < 0 or n > GUMBEL_MAX_ELEMENTS:
+            raise ValueError(f"gumbel_noise takes shapes of 0 to "
+                             f"{GUMBEL_MAX_ELEMENTS} elements, got {s}")
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("gumbel_noise cannot run under stream capture: "
+                           "it moves the generator's offset on the host")
+    lib = build()
+    props = torch.cuda.get_device_properties(dev)
+    outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
+    seed, offset = gen.initial_seed(), gen.get_offset()
+    todo = []
+    for out in outs:
+        if out.numel():
+            blocks, advance = rand_policy(
+                out.numel(), props.multi_processor_count,
+                props.max_threads_per_multi_processor)
+            todo.append((out, blocks, offset))
+            offset += advance
+    for i in range(0, len(todo), GUMBEL_SHAPES_A_LAUNCH):
+        part = todo[i:i + GUMBEL_SHAPES_A_LAUNCH]
+        k = len(part)
+        err = lib.nbp_gumbel_noise(
+            (ctypes.c_void_p * k)(*[o.data_ptr() for o, _, _ in part]),
+            (ctypes.c_longlong * k)(*[o.numel() for o, _, _ in part]),
+            (ctypes.c_uint64 * k)(*[off for _, _, off in part]),
+            (ctypes.c_int * k)(*[b for _, b, _ in part]), k, seed,
+            _stream(dev))
+        _raise_on(err, "nbp_gumbel_noise")
+        LAUNCHES["gumbel_noise"] += 1
+    gen.set_offset(offset)
+    return outs
+
+
+def gumbel_argmax(noise: Sequence[torch.Tensor], logits: torch.Tensor
+                  ) -> torch.Tensor:
+    """G2 launch: noise, C tensors (n, P) f32, and logits (C, P) f32, each
+    contiguous on one card -> (C, n) int64, row c ``torch.argmax(noise[c]
+    + logits[c], -1)`` (each score one f32 add, ties to the smaller index).
+    The noise is read where it lies; up to ``ARGMAX_CANDS_A_LAUNCH``
+    candidates a launch, P at most ``ARGMAX_MAX_P``. The layout is checked
+    before the device."""
+    named = [(logits, "logits")] + [(z, f"noise[{c}]")
+                                    for c, z in enumerate(noise)]
+    for x, name in named:
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be torch.float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if logits.dim() != 2 or logits.shape[0] != len(noise):
+        raise ValueError(f"logits has shape {tuple(logits.shape)}, expected "
+                         f"({len(noise)}, P)")
+    n_c, p = logits.shape
+    n = noise[0].shape[0] if n_c else 0
+    for z, name in named[1:]:
+        if tuple(z.shape) != (n, p):
+            raise ValueError(f"{name} has shape {tuple(z.shape)}, expected "
+                             f"({n}, {p})")
+    if not 1 <= p <= ARGMAX_MAX_P or n >= 2 ** 31:
+        raise ValueError(f"gumbel_argmax takes 1 to {ARGMAX_MAX_P} points "
+                         f"and fewer than 2^31 rows, got ({n}, {p})")
+    dev = logits.device
+    for x, name in named:
+        if x.device.type != "cuda" or x.device != dev:
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, got "
+                             f"{x.device}")
+    out = torch.empty((n_c, n), dtype=torch.int64, device=dev)
+    if n_c == 0 or n == 0:
+        return out
+    lib = build()
+    vec = int(p % 4 == 0 and all(z.data_ptr() % 16 == 0 for z in noise))
+    for c0 in range(0, n_c, ARGMAX_CANDS_A_LAUNCH):
+        part = noise[c0:c0 + ARGMAX_CANDS_A_LAUNCH]
+        k = len(part)
+        err = lib.nbp_gumbel_argmax(
+            (ctypes.c_void_p * k)(*[z.data_ptr() for z in part]), k,
+            logits[c0].data_ptr(), n, p, vec, out[c0].data_ptr(),
+            _stream(dev))
+        _raise_on(err, "nbp_gumbel_argmax")
+        LAUNCHES["gumbel_argmax"] += 1
     return out
 
 

@@ -11,7 +11,13 @@ probabilities).
 The C candidates go through one batched SconeVis call, as the JAX
 package's ``vmap``. The token sample is ``jax.random.categorical``'s:
 the argmax over the points of Gumbel noise (n_sample, P) plus the
-log-probabilities, the noise a candidate served by the caller.
+log-probabilities, the noise a candidate served by the caller. On a card
+every candidate's log-probabilities come at once as (C, P)
+(``candidate_logits``) and one launch of the hand-written kernel G2
+(``kernels.gumbel_argmax``) takes all C argmaxes, each noise tensor read
+where it lies; on the CPU ``sample_proxy_points``, the plain version, runs
+a candidate at a time. The run record counts the candidates drawn
+(``token_draws``) and those the kernel drew (``kernel_draws``).
 """
 
 from __future__ import annotations
@@ -20,10 +26,28 @@ from typing import Sequence
 
 import torch
 
+from .. import kernels
 from ..geometry.cameras import CameraIntrinsics, get_camera_RT, points_in_fov_mask
 from ..models.scone import SconeVis, coverage_gain
 from ..ops.view_state import normalize_points_in_prediction_box
-from ..utils.timing import span
+from ..utils.timing import count, span
+
+
+def candidate_logits(occ_probs: torch.Tensor, masks: torch.Tensor,
+                     min_occ: float = 0.1, use_occ_to_sample: bool = True
+                     ) -> torch.Tensor:
+    """Log-probabilities (C, P) of the occupancy-weighted draw of each of
+    C candidates, from occupancies (P, 1) and masks (C, P) of the points
+    that may be taken; uniform over all points for a candidate where none
+    may. A candidate's total is its row's sum in the batch, which on a
+    card may round an ulp apart from that row's sum alone."""
+    occ = occ_probs[:, 0]
+    w = occ if use_occ_to_sample else torch.ones_like(occ)
+    w = torch.where((occ > min_occ) & masks, w, torch.zeros_like(w))
+    total = w.sum(dim=1, keepdim=True)
+    probs = torch.where(total > 0, w / torch.clamp(total, min=1e-12),
+                        torch.full_like(w, 1.0 / w.shape[1]))
+    return torch.log(torch.clamp(probs, min=1e-12))
 
 
 def sample_proxy_points(noise: torch.Tensor, occ_probs: torch.Tensor,
@@ -32,14 +56,10 @@ def sample_proxy_points(noise: torch.Tensor, occ_probs: torch.Tensor,
     """Occupancy-weighted categorical sample of proxy tokens, with
     replacement: (n_sample,) indices from Gumbel noise (n_sample, P),
     occupancies (P, 1) and a mask (P,) of the points that may be taken.
-    Uniform over all points when none may."""
-    occ = occ_probs[:, 0]
-    w = occ if use_occ_to_sample else torch.ones_like(occ)
-    w = torch.where((occ > min_occ) & weights_mask, w, torch.zeros_like(w))
-    total = w.sum()
-    probs = torch.where(total > 0, w / torch.clamp(total, min=1e-12),
-                        torch.full_like(w, 1.0 / w.shape[0]))
-    logits = torch.log(torch.clamp(probs, min=1e-12))
+    Uniform over all points when none may. The plain version of one
+    candidate's draw."""
+    logits = candidate_logits(occ_probs, weights_mask[None], min_occ,
+                              use_occ_to_sample)[0]
     return torch.argmax(noise + logits[None, :], dim=-1)
 
 
@@ -67,10 +87,16 @@ def predict_coverage_gain(noise: Sequence[torch.Tensor], scone_vis: SconeVis,
                                     T[:, None], intr, fov_range=sensor_range)
         occ = occ_probs[:, 0]
         fov_volume = torch.where(in_fov, occ, torch.zeros_like(occ)).sum(1)
-        idx = torch.stack([sample_proxy_points(noise[c], occ_probs,
-                                               in_fov[c], min_occ,
-                                               use_occ_to_sample)
-                           for c in range(C)])                  # (C, n)
+        if proxy_points.is_cuda:
+            idx = kernels.gumbel_argmax(noise, candidate_logits(
+                occ_probs, in_fov, min_occ, use_occ_to_sample))  # (C, n)
+            count("kernel_draws", C)
+        else:
+            idx = torch.stack([sample_proxy_points(noise[c], occ_probs,
+                                                   in_fov[c], min_occ,
+                                                   use_occ_to_sample)
+                               for c in range(C)])
+        count("token_draws", C)
     with span("scone_vis"):
         tokens = proxy_points[idx]                              # (C, n, 3)
         center = (tokens.amax(dim=1) + tokens.amin(dim=1)) / 2.0

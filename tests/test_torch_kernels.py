@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from nextbestpath_tpu_torch import kernels
+from nextbestpath_tpu_torch.draws import TorchDraws
 from nextbestpath_tpu_torch.geometry.cameras import CameraIntrinsics
 from nextbestpath_tpu_torch.ops import coverage as C
 from nextbestpath_tpu_torch.ops import raytrace as R
@@ -42,7 +43,8 @@ def test_library_path_is_hashed_under_build_dir():
     assert os.path.basename(path).startswith("libnbp_kernels_")
     assert path.endswith(".so") and path == kernels.library_path()
     names = sorted(os.path.basename(p) for p in kernels._sources())
-    assert names == ["common.cuh", "coverage.cu", "plan.cu", "raytrace.cu"]
+    assert names == ["common.cuh", "coverage.cu", "gumbel.cu", "plan.cu",
+                     "raytrace.cu"]
 
 
 def test_find_nvcc_raises_when_absent(monkeypatch):
@@ -122,13 +124,15 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
                                         torch.tensor([[1, 2], [0, 0]]), 5, 6)
     G.extract_path_scenes(dists, torch.stack([blocked, blocked]),
                           torch.tensor([[4, 5], [2, 2]]), 5, 6, max_len=8)
+    TorchDraws(0, torch.device("cpu")).gumbels("gain", [(3, 5), (3, 5)])
     assert kernels.LAUNCHES == {"ray_hits_pinhole": 0, "ray_hits": 0,
                                 "min_sq_dists": 0, "bfs_field": 0,
                                 "extract_path": 0,
                                 "ray_hits_pinhole_scenes": 0,
                                 "min_sq_dists_scenes": 0,
                                 "bfs_field_scenes": 0,
-                                "extract_path_scenes": 0}
+                                "extract_path_scenes": 0,
+                                "gumbel_noise": 0, "gumbel_argmax": 0}
 
 
 @pytest.mark.cuda

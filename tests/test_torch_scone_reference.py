@@ -271,8 +271,8 @@ def test_vis_tokens_keyword_and_the_nbv_record(small_scene, monkeypatch):
     """vis_tokens=None keeps the JAX package's cap (min(seq_len, 1024)
     tokens a candidate, the rollout unchanged); vis_tokens=N hands N
     tokens to SconeVis. The pose loop's ``nbv`` record carries the
-    spans, the valid candidates and the four counters, a pose at a
-    time."""
+    spans, the valid candidates and the five counters, a pose at a
+    time (on the CPU no candidate's tokens are the kernel's)."""
     models = TN.seeded_scone(0, small=True)
     seq = min(int(small_scene[1].seq_len), 1024)
     base, seen = _rollout(small_scene, models)
@@ -298,7 +298,7 @@ def test_vis_tokens_keyword_and_the_nbv_record(small_scene, monkeypatch):
     assert rec.counts == {
         "vis_tokens": 2 * TN.C_MAX * 24,
         "occ_queries": 2 * TN.NBV_SMALL_TOKENS["n_proxy_tokens"],
-        "host_reads": 4, "launches": 0}
+        "host_reads": 4, "launches": 0, "token_draws": 2 * TN.C_MAX}
     for name in ("coverage", "carve", "occupancy", "gumbel", "gains",
                  "sample", "scone_vis", "move"):
         assert rec.n(name) == 2, name
